@@ -1,0 +1,18 @@
+"""aswstereomatch_torch — the stereo-matching engine in PyTorch and CUDA.
+
+The port of ``aswstereomatch_tpu`` (the JAX/Pallas reference, which stays
+beside it) to one NVIDIA H100: exact Yoon-Kweon adaptive-support-weight
+matching through a hand-written fused CUDA kernel (ops/cuda), with plain
+PyTorch stages around it.  Imports torch and numpy, never jax.
+"""
+
+import torch
+
+# Near-tie WTA winners flip on TF32's ~1e-3 relative error: keep f32 exact.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .config import PRESETS, StereoConfig, get_preset  # noqa: E402,F401
+from .models.pipeline import StereoMatcher, match_batch, match_pair  # noqa: E402,F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,202 @@
+"""End-to-end stereo matching pipeline in PyTorch.
+
+Counterpart of ``aswstereomatch_tpu.models.pipeline``.  ``match_pair(left,
+right, cfg)`` runs one pair: images -> cost (fused into aggregation) -> WTA
+-> subpixel -> LR check -> fill -> median -> float32 (H, W) disparity map.
+
+Backends:
+  - "eager": the plain PyTorch stages (ops/) over the materialized
+             aggregated volume — runs on any device; the oracle for the
+             kernel.
+  - "cuda":  the hand-written fused CUDA kernel (ops/cuda) for
+             cost + aggregation + WTA, the plain post-processing on top.
+  - "auto":  "cuda" for CUDA tensors when the kernel serves the config,
+             "eager" otherwise.
+
+Not ported yet (raise NotImplementedError): SGM, separable ASW, y_chunks
+streaming, the confidence surface.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import StereoConfig, get_preset
+from ..ops import aggregate, postprocess, preprocess, wta
+from ..ops.cuda import asw_kernel
+
+aggregated_volume = aggregate.aggregated_volume
+
+
+def disp_pre_from_volume(vol: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+    """WTA + subpixel + LR/uniqueness gates + fill (row-local; no median)."""
+    disp_i = wta.wta(vol)
+    disp = wta.subpixel(vol, disp_i) if cfg.subpixel else disp_i.to(torch.float32)
+    valid = None
+    if cfg.lr_check:
+        disp_r_i = wta.wta(postprocess.right_volume(vol))
+        valid = postprocess.lr_check(disp_i, disp_r_i, cfg)
+    if cfg.uniqueness_ratio > 0:
+        bestc = torch.gather(vol, -1, disp_i.to(torch.int64)[..., None])[..., 0]
+        second = wta.second_best_excl_neighbors(vol, disp_i)
+        uv = wta.uniqueness_valid(bestc, second, cfg.uniqueness_ratio)
+        valid = uv if valid is None else valid & uv
+    return _apply_validity(disp, valid, cfg)
+
+
+def _apply_validity(disp, valid, cfg: StereoConfig) -> torch.Tensor:
+    if valid is not None:
+        if cfg.fill_holes:
+            disp = postprocess.fill_holes(disp, valid)
+        else:
+            disp = torch.where(valid, disp, torch.full_like(disp, -1.0))
+    return disp.to(torch.float32)
+
+
+def _guide_lab(left: torch.Tensor, cfg: StereoConfig):
+    if cfg.median_filter and cfg.median_mode == "weighted":
+        return preprocess.rgb_to_lab(left)
+    return None
+
+
+def _postprocess_from_volume(
+    vol: torch.Tensor, cfg: StereoConfig, left: torch.Tensor
+) -> torch.Tensor:
+    """WTA + subpixel + LR + fill + median from an aggregated volume."""
+    disp = disp_pre_from_volume(vol, cfg)
+    if cfg.median_filter:
+        disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
+    return disp
+
+
+def _resolve_backend(cfg: StereoConfig, device: torch.device) -> str:
+    """Which backend runs ``cfg`` on tensors on ``device``.
+
+    Every exact ASW or box config on the card goes to the one fused kernel
+    (left-only ASW included; the reference's d-lanes kernels are not ported
+    yet), with no work threshold for small box problems."""
+    supported = asw_kernel.supports(cfg)
+    on_card = torch.device(device).type == "cuda"
+    if cfg.backend == "eager":
+        return "eager"
+    if cfg.backend == "cuda":
+        if not on_card:
+            raise ValueError("backend='cuda' needs tensors on a CUDA device")
+        if not supported:
+            raise ValueError(
+                "backend='cuda' has no kernel for this config (the fused "
+                "kernel serves exact 'asw' and 'box' aggregation)"
+            )
+        return "cuda"
+    return "cuda" if on_card and supported else "eager"
+
+
+def _kernel_wta(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> dict:
+    """Fused-kernel WTA outputs (one kernel serves every supported layout)."""
+    return asw_kernel.wta_outputs(left, right, cfg)
+
+
+def _disp_pre_from_wta(outs: dict, cfg: StereoConfig) -> torch.Tensor:
+    """Subpixel + LR + uniqueness + fill from the fused kernel's online-WTA
+    outputs (everything row-local; no median)."""
+    disp_i = outs["bestd"]
+    if cfg.subpixel:
+        disp = wta.subpixel_from_triple(
+            disp_i, outs["bestc"], outs["cm"], outs["cp"], cfg.max_disparity
+        )
+    else:
+        disp = disp_i.to(torch.float32)
+    valid = None
+    if cfg.lr_check:
+        valid = postprocess.lr_check(disp_i, outs["rbestd"], cfg)
+    if cfg.uniqueness_ratio > 0:
+        uv = wta.uniqueness_valid(outs["bestc"], outs["ubest"], cfg.uniqueness_ratio)
+        valid = uv if valid is None else valid & uv
+    return _apply_validity(disp, valid, cfg)
+
+
+def _postprocess_from_wta(
+    outs: dict, cfg: StereoConfig, left: torch.Tensor
+) -> torch.Tensor:
+    """Post-process the fused kernel's online-WTA outputs (no volume)."""
+    disp = _disp_pre_from_wta(outs, cfg)
+    if cfg.median_filter:
+        disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
+    return disp.to(torch.float32)
+
+
+def match_pair(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+    """Match one rectified pair of float32 (H, W[, 3]) images -> float32
+    (H, W) disparity, on the images' device."""
+    backend = _resolve_backend(cfg, left.device)
+    if backend == "cuda":
+        outs = _kernel_wta(left, right, cfg)
+        return _postprocess_from_wta(outs, cfg, left)
+    if cfg.y_chunks > 1:
+        raise NotImplementedError("y_chunks > 1 row streaming is not ported yet")
+    vol = aggregated_volume(left, right, cfg)
+    return _postprocess_from_volume(vol, cfg, left)
+
+
+def match_batch(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+    """(B, H, W[, 3]) x2 -> (B, H, W): one pair at a time (a single pair
+    already fills the card)."""
+    return torch.stack(
+        [match_pair(l, r, cfg) for l, r in zip(left, right)]
+    )
+
+
+class StereoMatcher:
+    """A configured matcher bound to one device.
+
+    >>> m = StereoMatcher.from_preset("middlebury_asw_full")   # device="cuda"
+    >>> disp = m(left, right)             # single pair, (H, W) float32 tensor
+    >>> disps = m.batch(lefts, rights)    # (B, H, W)
+
+    Inputs are numpy arrays or tensors, uint8 (widened to float32 on the
+    device, lossless) or float32.  The default device is "cuda"; building a
+    matcher for a CUDA device on a machine without one raises — it never
+    falls back to the CPU.
+    """
+
+    def __init__(self, cfg: StereoConfig, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "StereoMatcher(device='cuda') needs a CUDA device; pass "
+                "device='cpu' to run the eager path on the CPU"
+            )
+        self.cfg = cfg
+
+    @classmethod
+    def from_preset(cls, name: str, device="cuda", **overrides) -> "StereoMatcher":
+        cfg = get_preset(name)
+        if overrides:
+            cfg = cfg.replace(**overrides)
+        return cls(cfg, device=device)
+
+    def _as_input(self, img) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(img)) if isinstance(img, np.ndarray) else img
+        return t.to(self.device).to(torch.float32)
+
+    @staticmethod
+    def _validate(left, right, batched: bool):
+        want = 3 if batched else 2
+        if left.ndim not in (want, want + 1):
+            raise ValueError(
+                f"expected {'(B, H, W[, 3])' if batched else '(H, W[, 3])'} "
+                f"images, got shape {tuple(left.shape)}"
+            )
+        if left.shape != right.shape:
+            raise ValueError(
+                f"left/right shape mismatch: {tuple(left.shape)} vs {tuple(right.shape)}"
+            )
+
+    def __call__(self, left, right) -> torch.Tensor:
+        self._validate(left, right, batched=False)
+        return match_pair(self._as_input(left), self._as_input(right), self.cfg)
+
+    def batch(self, lefts, rights) -> torch.Tensor:
+        self._validate(lefts, rights, batched=True)
+        return match_batch(self._as_input(lefts), self._as_input(rights), self.cfg)

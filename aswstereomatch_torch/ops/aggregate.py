@@ -1,0 +1,173 @@
+"""Cost aggregation in PyTorch (the plain, materializing versions).
+
+Counterpart of ``aswstereomatch_tpu.ops.aggregate`` for the exact window
+aggregators, under the pinned virtual padded-plane border semantics
+(config.py):
+
+  - ``aggregate_box``: fixed-window mean — x taps slide VALID over the
+    x-extended cost, y taps over edge-replicated rows.
+  - ``aggregate_asw``: Yoon-Kweon adaptive-support-weight aggregation with
+    symmetric two-view (or left-only) weights.  The left weight planes are
+    built once and reused across all d; the right planes live on the
+    x-extended right domain and step d reads the window starting at
+    (D-1) - d.  One raw cost plane exists at a time.
+
+These materialize (H, W, K^2) weight planes (about 2 GB each at KITTI
+geometry, r=16) and the (H, W, D) output volume: they are the readable
+reference the fused CUDA kernel (ops/cuda) is tested against, not the main
+path on the card.  The separable approximation and SGM are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import StereoConfig
+from ..utils.convert import spatial_weights_np
+from . import cost as cost_ops
+from . import preprocess
+
+
+def _patches_2d(arr: torch.Tensor, radius: int, x_valid: bool = False) -> torch.Tensor:
+    """All (2r+1)^2 window taps of a 2D array -> (H, W_out, O).
+
+    y: edge-replicate padding.  x: edge-replicate padding, or — when
+    ``x_valid`` — the array is already x-extended by ``radius`` per side and
+    taps slide VALID.  Offsets are in row-major (wy, wx) order, matching the
+    NumPy oracle's window loops.
+    """
+    k = 2 * radius + 1
+    h = arr.shape[0]
+    pad = preprocess.pad_edge(arr, 0, radius, radius)
+    if not x_valid:
+        pad = preprocess.pad_edge(pad, 1, radius, radius)
+    w_out = pad.shape[1] - 2 * radius
+    # (H, W_out, k_wy, k_wx) view -> contiguous (H, W_out, O)
+    return pad.unfold(0, k, 1).unfold(1, k, 1).reshape(h, w_out, k * k)
+
+
+def bilateral_planes_from_lab(lab_ext: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+    """Per-center ASW weight planes w(p, p+o) from a pre-extended Lab image.
+
+    lab_ext: (H, We + 2r, 3) covering [centers - r, centers + r].  Returns
+    (H, We, O).
+    """
+    r = cfg.window_radius
+    we = lab_ext.shape[-2]
+    d2 = None
+    for c in range(3):
+        p = _patches_2d(lab_ext[..., c], r, x_valid=True)
+        diff = p - lab_ext[:, r : we - r, c : c + 1]
+        d2 = diff * diff if d2 is None else d2 + diff * diff
+        del p, diff
+    sw = torch.from_numpy(spatial_weights_np(cfg).reshape(-1)).to(lab_ext.device)
+    d2.sqrt_().neg_().div_(cfg.gamma_color).exp_().mul_(sw)
+    return d2.to(torch.float32)
+
+
+def aggregate_box(vol_ext: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+    """Mean over the (2r+1)^2 window.  vol_ext: x-extended (H, W+2r, D)."""
+    r = cfg.window_radius
+    if r == 0:
+        return vol_ext
+    k = 2 * r + 1
+    h, we = vol_ext.shape[:2]
+    w = we - 2 * r
+    pad = preprocess.pad_edge(vol_ext, 0, r, r)
+    col = pad[0:h].clone()
+    for wy in range(1, k):
+        col += pad[wy : wy + h]
+    summed = col[:, 0:w].clone()
+    for wx in range(1, k):
+        summed += col[:, wx : wx + w]
+    return (summed / float(k * k)).to(torch.float32)
+
+
+def cost_volume_from_stacks(
+    l_stack_ext: torch.Tensor, r_stack_ext: torch.Tensor, cfg: StereoConfig
+) -> torch.Tensor:
+    """x-extended raw cost volume (H, W + 2r, D) from pre-extended stacks."""
+    planes = cost_ops.planes_from_stacks(l_stack_ext, r_stack_ext, cfg.window_radius)
+    return torch.stack(
+        [cost_ops.cost_plane(planes, d, cfg) for d in range(cfg.max_disparity)],
+        dim=-1,
+    )
+
+
+def aggregate_asw_from_stacks(
+    l_stack_ext: torch.Tensor,
+    r_stack_ext: torch.Tensor,
+    cfg: StereoConfig,
+) -> torch.Tensor:
+    """Exact ASW-aggregated cost volume from pre-extended channel stacks.
+
+    l_stack_ext: (7, H, W + 2r); r_stack_ext: (7, H, W + 2r + D - 1) —
+    preprocess.channel_stack layout, columns edge-extended per the pinned
+    padded-plane semantics.  Returns (H, W, D).  Each step builds its tap and
+    weight planes and frees them before the next, so peak memory stays at a
+    few (H, W, K^2) planes whatever D is.
+    """
+    if cfg.asw_separable:
+        raise NotImplementedError("separable ASW is not ported yet")
+    r = cfg.window_radius
+    D = cfg.max_disparity
+    w = l_stack_ext.shape[2] - 2 * r
+
+    planes = cost_ops.planes_from_stacks(l_stack_ext, r_stack_ext, r)
+    wl = bilateral_planes_from_lab(torch.movedim(l_stack_ext[4:7], 0, -1), cfg)
+    if cfg.asw_symmetric:
+        # Right-weight planes on centers x' in [-(D-1), W-1]; step d reads
+        # the window starting at (D-1) - d.
+        wr = bilateral_planes_from_lab(torch.movedim(r_stack_ext[4:7], 0, -1), cfg)
+    else:
+        den_left = wl.sum(dim=-1)
+
+    out = []
+    for d in range(D):
+        plane = cost_ops.cost_plane(planes, d, cfg)  # (H, W + 2r)
+        taps = _patches_2d(plane, r, x_valid=True)  # (H, W, O), fresh
+        if cfg.asw_symmetric:
+            start = (D - 1) - d
+            wgt = wl * wr[:, start : start + w]
+            num = taps.mul_(wgt).sum(dim=-1)
+            den = wgt.sum(dim=-1)
+            del wgt
+        else:
+            num = taps.mul_(wl).sum(dim=-1)
+            den = den_left
+        del taps
+        out.append((num / den).to(torch.float32))
+    return torch.stack(out, dim=-1)
+
+
+def aggregate_asw(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    cfg: StereoConfig,
+) -> torch.Tensor:
+    """Exact ASW-aggregated cost volume for a full pair: edge-pads the
+    channel stacks to the virtual padded planes and defers to
+    ``aggregate_asw_from_stacks``."""
+    r = cfg.window_radius
+    D = cfg.max_disparity
+    ls = preprocess.channel_stack(left)
+    rs = preprocess.channel_stack(right)
+    return aggregate_asw_from_stacks(
+        preprocess.pad_edge(ls, 2, r, r),
+        preprocess.pad_edge(rs, 2, r + D - 1, r),
+        cfg,
+    )
+
+
+def aggregated_volume(
+    left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
+) -> torch.Tensor:
+    """(H, W, D) aggregated cost volume per the configured cost/aggregation."""
+    if cfg.aggregation == "asw":
+        return aggregate_asw(left, right, cfg)
+    if cfg.aggregation == "box":
+        vol_ext = cost_ops.cost_volume(left, right, cfg, x_extend=cfg.window_radius)
+        return aggregate_box(vol_ext, cfg)
+    if cfg.aggregation == "sgm":
+        raise NotImplementedError("aggregation='sgm' is not ported yet")
+    return cost_ops.cost_volume(left, right, cfg)

@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), built at first use by
+``build.py`` from the sources in this directory."""

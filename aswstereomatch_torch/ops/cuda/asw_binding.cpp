@@ -1,0 +1,91 @@
+// PyTorch binding of the fused ASW kernel (asw_kernel.cu) as the operator
+// torch.ops.asw_torch.asw_wta.  Checks its inputs, allocates the outputs
+// and launches on the current CUDA stream; a launch error raises.  It has
+// only a CUDA implementation: CPU tensors take the plain PyTorch version in
+// ops/cuda/asw_kernel.py before they get here.
+
+#include <ATen/core/Tensor.h>
+#include <ATen/ops/empty.h>
+#include <ATen/ops/full.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <torch/library.h>
+
+#include <tuple>
+
+extern "C" int asw_wta_launch(
+    const float* ls, const float* rs, const float* sw, int H, int W, int r,
+    int D, int mode, int cost_ad, float alpha, float one_minus_alpha,
+    float tau_color, float tau_grad, float inv_gamma_color, float inv_n,
+    int* bestd, float* bestc, float* cm, float* cp, float* ubest,
+    unsigned long long* rpack, int* rbestd, void* stream);
+extern "C" const char* asw_error_string(int err);
+
+namespace {
+
+void check_input(const at::Tensor& t, const char* name, int64_t dims) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == at::kFloat, name, " must be float32");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  TORCH_CHECK(t.dim() == dims, name, " must have ", dims, " dimensions");
+}
+
+std::tuple<at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor>
+asw_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& sw,
+        int64_t r, int64_t D, int64_t mode, int64_t cost_ad, double alpha,
+        double one_minus_alpha, double tau_color, double tau_grad,
+        double inv_gamma_color) {
+  check_input(ls, "ls", 3);
+  check_input(rs, "rs", 3);
+  check_input(sw, "sw", 2);
+  TORCH_CHECK(r >= 0 && D >= 1, "need r >= 0 and D >= 1");
+  TORCH_CHECK(mode >= 0 && mode <= 2, "mode must be 0, 1 or 2");
+  const int64_t H = ls.size(1);
+  const int64_t W = ls.size(2) - 2 * r;
+  const int64_t K = 2 * r + 1;
+  TORCH_CHECK(ls.size(0) == 7 && rs.size(0) == 7, "stacks need 7 channels");
+  TORCH_CHECK(H >= 1 && W >= 1, "empty image");
+  TORCH_CHECK(rs.size(1) == H && rs.size(2) == W + 2 * r + D - 1,
+              "rs must be (7, H, W + 2r + D - 1)");
+  TORCH_CHECK(sw.size(0) == K && sw.size(1) == K, "sw must be (K, K)");
+  TORCH_CHECK(rs.device() == ls.device() && sw.device() == ls.device(),
+              "inputs must share one device");
+  TORCH_CHECK(H * W < (int64_t)1 << 31, "image too large");
+
+  c10::cuda::CUDAGuard guard(ls.device());
+  const auto f32 = ls.options();
+  const auto i32 = ls.options().dtype(at::kInt);
+  at::Tensor bestd = at::empty({H, W}, i32);
+  at::Tensor bestc = at::empty({H, W}, f32);
+  at::Tensor cm = at::empty({H, W}, f32);
+  at::Tensor cp = at::empty({H, W}, f32);
+  at::Tensor ubest = at::empty({H, W}, f32);
+  at::Tensor rbestd = at::empty({H, W}, i32);
+  // All-ones words: larger than every packed (cost, d) candidate.
+  at::Tensor rpack = at::full({H, W}, -1, ls.options().dtype(at::kLong));
+
+  const int err = asw_wta_launch(
+      ls.data_ptr<float>(), rs.data_ptr<float>(), sw.data_ptr<float>(),
+      (int)H, (int)W, (int)r, (int)D, (int)mode, (int)cost_ad, (float)alpha,
+      (float)one_minus_alpha, (float)tau_color, (float)tau_grad,
+      (float)inv_gamma_color, (float)(1.0 / (double)(K * K)),
+      bestd.data_ptr<int>(), bestc.data_ptr<float>(), cm.data_ptr<float>(),
+      cp.data_ptr<float>(), ubest.data_ptr<float>(),
+      reinterpret_cast<unsigned long long*>(rpack.data_ptr<int64_t>()),
+      rbestd.data_ptr<int>(),
+      c10::cuda::getCurrentCUDAStream(ls.get_device()).stream());
+  TORCH_CHECK(err == 0, "asw_wta launch failed: ", asw_error_string(err));
+  return {bestd, bestc, cm, cp, ubest, rbestd};
+}
+
+}  // namespace
+
+TORCH_LIBRARY(asw_torch, m) {
+  m.def(
+      "asw_wta(Tensor ls, Tensor rs, Tensor sw, int r, int D, int mode, "
+      "int cost_ad, float alpha, float one_minus_alpha, float tau_color, "
+      "float tau_grad, float inv_gamma_color) "
+      "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
+}
+
+TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) { m.impl("asw_wta", &asw_wta); }

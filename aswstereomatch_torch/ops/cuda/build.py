@@ -1,0 +1,154 @@
+"""Build the port's CUDA kernels from the sources in this directory.
+
+``load()`` compiles ``*.cu`` with ``nvcc`` for ``sm_90a`` (Hopper) and
+``*.cpp`` with the host C++ compiler against PyTorch's headers, links one
+shared library, and loads it with ``torch.ops.load_library``, which
+registers ``torch.ops.asw_torch.*``.  The library is kept under ``_build/``
+(listed in .gitignore), keyed by a hash of the sources, the PyTorch version
+and the flags, so editing a source rebuilds it and a second process reuses
+it.  The kernel sources carry a plain C interface and do not include
+PyTorch's headers, so nvcc takes seconds; only the small binding file
+includes them.
+
+A build or load failure raises ``BuildError`` with the compiler's output.
+Nothing catches it to carry on without the kernel.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+SRC_DIR = Path(__file__).resolve().parent
+BUILD_ROOT = SRC_DIR / "_build"
+LIB_NAME = "libasw_torch.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC"]
+
+
+class BuildError(RuntimeError):
+    pass
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cpp"))
+
+
+def _cuda_home() -> Path:
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            return Path(os.environ[var])
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return Path(nvcc).resolve().parent.parent
+    return Path("/usr/local/cuda")
+
+
+def _build_key() -> str:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(torch.__version__.encode())
+    h.update(" ".join(NVCC_FLAGS + CXX_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _run(cmd: list[str], log: list[str]) -> None:
+    log.append("$ " + " ".join(cmd))
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise BuildError(f"compiler not found: {e}") from e
+    log.append(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise BuildError(
+            f"command failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+
+
+def _compile(out: Path) -> list[str]:
+    """Compile and link every source into ``out``; returns the build log."""
+    cuda = _cuda_home()
+    nvcc = str(cuda / "bin" / "nvcc")
+    cxx = os.environ.get("CXX", "c++")
+    torch_dir = Path(torch.__file__).resolve().parent
+    includes = [
+        "-I", str(torch_dir / "include"),
+        "-I", str(torch_dir / "include" / "torch" / "csrc" / "api" / "include"),
+        "-I", str(cuda / "include"),
+    ]
+    abi = f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"
+    log: list[str] = []
+    objs = []
+    for src in _sources():
+        obj = out.parent / (src.name + ".o")
+        if src.suffix == ".cu":
+            _run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)], log)
+        else:
+            _run([cxx, *CXX_FLAGS, abi, *includes, "-c", str(src), "-o", str(obj)], log)
+        objs.append(str(obj))
+    torch_lib = str(torch_dir / "lib")
+    _run(
+        [nvcc, "-shared", "-cudart", "shared", *objs, "-o", str(out),
+         "-L", torch_lib, "-lc10", "-lc10_cuda", "-ltorch_cpu", "-ltorch",
+         "-L", str(cuda / "lib64"),
+         "-Xlinker", f"-rpath,{torch_lib}",
+         "-Xlinker", f"-rpath,{cuda / 'lib64'}"],
+        log,
+    )
+    return log
+
+
+def library_path() -> Path:
+    """Path of the built library for the current sources, building it first
+    if needed.  Concurrent builders each build in a private directory and
+    the first to finish publishes with an atomic rename."""
+    final = BUILD_ROOT / _build_key()
+    lib = final / LIB_NAME
+    if lib.exists():
+        return lib
+    tmp = BUILD_ROOT / f".tmp-{os.getpid()}-{time.monotonic_ns()}"
+    tmp.mkdir(parents=True)
+    try:
+        log = _compile(tmp / LIB_NAME)
+        (tmp / "build.log").write_text("\n".join(log))
+        try:
+            os.replace(tmp, final)
+        except OSError:
+            if not lib.exists():  # not a lost race with another builder
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+_loaded: Path | None = None
+
+
+def load() -> Path:
+    """Build (if needed) and load the kernels' library once per process."""
+    global _loaded
+    if _loaded is None:
+        lib = library_path()
+        try:
+            torch.ops.load_library(str(lib))
+        except OSError as e:
+            raise BuildError(f"loading {lib} failed: {e}") from e
+        _loaded = lib
+    return _loaded
+
+
+def build_log() -> str:
+    """The compiler output of the loaded build (ptxas register/spill lines)."""
+    return (load().parent / "build.log").read_text()
