@@ -84,8 +84,7 @@ class StereoConfig:
     sgm_paths: int = 4                 # 4 (axial) | 8 (+ diagonals)
     asw_separable: bool = False        # two-pass separable approximation of
                                        # the ASW window (a documented speed
-                                       # mode, not the exact Yoon-Kweon sum);
-                                       # not ported yet
+                                       # mode, not the exact Yoon-Kweon sum)
     # ---- post-processing ----------------------------------------------------
     lr_check: bool = True
     lr_tol: float = 1.0                # max |dL - dR| to accept a pixel
@@ -99,15 +98,16 @@ class StereoConfig:
     median_mode: str = "plain"         # "plain" | "weighted"
     # ---- memory -------------------------------------------------------------
     y_chunks: int = 1                  # >1: stream row bands (not ported yet)
-    volume_dtype: str = "float32"      # separable d-lanes volume storage
+    volume_dtype: str = "float32"      # separable kernel's cost storage
     # ---- parallelism (read only by the reference's parallel/) ---------------
     mesh_data: int = 1                 # chips along the batch ("data") axis
     mesh_tile: int = 1                 # chips along the spatial ("tile") axis
     tile_axis: str = "y"               # what "tile" shards: "y" | "x" | "d"
     # ---- backend selection --------------------------------------------------
     backend: str = "auto"              # "auto" | "eager" | "cuda"
-    kernel_layout: str = "auto"        # "auto" | "xlanes" | "dlanes"; the
-                                       # port has one kernel for every layout
+    kernel_layout: str = "auto"        # "auto" | "xlanes" | "dlanes"; one
+                                       # exact kernel serves every layout;
+                                       # separable + "xlanes" runs eager
 
     def __post_init__(self):
         if self.cost not in ("ad", "tad_grad"):

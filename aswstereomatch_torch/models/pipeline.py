@@ -7,24 +7,28 @@ right, cfg)`` runs one pair: images -> cost (fused into aggregation) -> WTA
 Backends:
   - "eager": the plain PyTorch stages (ops/) over the materialized
              aggregated volume — runs on any device; the oracle for the
-             kernel.
-  - "cuda":  the hand-written fused CUDA kernel (ops/cuda) for
-             cost + aggregation + WTA, the plain post-processing on top.
-  - "auto":  "cuda" for CUDA tensors when the kernel serves the config,
+             kernels.  It stores the volume in float32 whatever
+             ``volume_dtype`` says (and warns when that says bfloat16).
+  - "cuda":  a hand-written CUDA kernel (ops/cuda) for cost + aggregation +
+             WTA, the plain post-processing on top: ``asw_kernel`` (fused
+             exact ASW or box) or, for ``asw_separable``, ``asw_sep_kernel``.
+  - "auto":  "cuda" for CUDA tensors when a kernel serves the config,
              "eager" otherwise.
 
-Not ported yet (raise NotImplementedError): SGM, separable ASW, y_chunks
-streaming, the confidence surface.
+Not ported yet (raise NotImplementedError): SGM, y_chunks streaming, the
+confidence surface.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
 from ..config import StereoConfig, get_preset
 from ..ops import aggregate, postprocess, preprocess, wta
-from ..ops.cuda import asw_kernel
+from ..ops.cuda import asw_kernel, asw_sep_kernel
 
 aggregated_volume = aggregate.aggregated_volume
 
@@ -73,27 +77,58 @@ def _postprocess_from_volume(
 def _resolve_backend(cfg: StereoConfig, device: torch.device) -> str:
     """Which backend runs ``cfg`` on tensors on ``device``.
 
-    Every exact ASW or box config on the card goes to the one fused kernel
-    (left-only ASW included; the reference's d-lanes kernels are not ported
-    yet), with no work threshold for small box problems."""
-    supported = asw_kernel.supports(cfg)
-    on_card = torch.device(device).type == "cuda"
+    Separable configs go to ``asw_sep_kernel`` when it routes them
+    (``asw_sep_kernel.routed``: the reference's kernel_layout rules), every
+    other exact ASW or box config to the one fused kernel (left-only ASW
+    included; the reference's d-lanes kernels K3/K4 are not ported yet),
+    with no work threshold for small box problems.  A bfloat16
+    ``volume_dtype`` resolved to the eager path warns: that path stores the
+    volume in float32."""
     if cfg.backend == "eager":
-        return "eager"
+        return _eager(cfg)
+    supported = (asw_sep_kernel.routed(cfg) if cfg.asw_separable
+                 else asw_kernel.supports(cfg))
+    on_card = torch.device(device).type == "cuda"
     if cfg.backend == "cuda":
         if not on_card:
             raise ValueError("backend='cuda' needs tensors on a CUDA device")
         if not supported:
             raise ValueError(
                 "backend='cuda' has no kernel for this config (the fused "
-                "kernel serves exact 'asw' and 'box' aggregation)"
+                "kernel serves exact 'asw' and 'box' aggregation, the "
+                "separable kernel separable ASW with D in [2, 128], r <= 32 "
+                "and kernel_layout != 'xlanes')"
             )
         return "cuda"
-    return "cuda" if on_card and supported else "eager"
+    return "cuda" if on_card and supported else _eager(cfg)
+
+
+def _eager(cfg: StereoConfig) -> str:
+    if cfg.volume_dtype == "bfloat16":
+        # bf16 cost storage exists only inside the separable kernel; the
+        # eager path computes in float32, which the declared dtype (and the
+        # config hash) would otherwise misstate.
+        warnings.warn(
+            "volume_dtype='bfloat16' config resolved to the eager backend "
+            "(no CUDA tensors / unsupported geometry): the run stores the "
+            "volume in float32",
+            stacklevel=3,
+        )
+    return "eager"
 
 
 def _kernel_wta(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> dict:
-    """Fused-kernel WTA outputs (one kernel serves every supported layout)."""
+    """Kernel WTA outputs.  A separable config goes to the separable kernel
+    or raises: the exact kernel must never compute a separable config's
+    window."""
+    if cfg.asw_separable:
+        if asw_sep_kernel.routed(cfg):
+            return asw_sep_kernel.wta_outputs(left, right, cfg)
+        raise ValueError(
+            "separable ASW has no xlanes kernel and requires "
+            "max_disparity in [2, 128] and window_size <= 65 "
+            "(kernel_layout 'auto'/'dlanes'); use backend='auto'/'eager'"
+        )
     return asw_kernel.wta_outputs(left, right, cfg)
 
 

@@ -11,11 +11,16 @@ aggregators, under the pinned virtual padded-plane border semantics
     built once and reused across all d; the right planes live on the
     x-extended right domain and step d reads the window starting at
     (D-1) - d.  One raw cost plane exists at a time.
+  - ``aggregate_asw_separable_from_stacks``: the two-pass separable speed
+    mode (``asw_separable``): a vertical bilateral pass over the x-extended
+    cost, then a horizontal one, with the right-view factor in both passes
+    in symmetric mode.
 
-These materialize (H, W, K^2) weight planes (about 2 GB each at KITTI
-geometry, r=16) and the (H, W, D) output volume: they are the readable
-reference the fused CUDA kernel (ops/cuda) is tested against, not the main
-path on the card.  The separable approximation and SGM are not ported yet.
+These materialize weight planes ((H, W, K^2) for the exact window, about
+2 GB each at KITTI geometry, r=16; (H, W, K) for the separable passes) and
+the (H, W, D) output volume: they are the readable references the CUDA
+kernels (ops/cuda/asw_kernel, ops/cuda/asw_sep_kernel) are tested against,
+not the main path on the card.  SGM is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..config import StereoConfig
-from ..utils.convert import spatial_weights_np
+from ..utils.convert import axial_weights_np, spatial_weights_np
 from . import cost as cost_ops
 from . import preprocess
 
@@ -63,6 +68,98 @@ def bilateral_planes_from_lab(lab_ext: torch.Tensor, cfg: StereoConfig) -> torch
     sw = torch.from_numpy(spatial_weights_np(cfg).reshape(-1)).to(lab_ext.device)
     d2.sqrt_().neg_().div_(cfg.gamma_color).exp_().mul_(sw)
     return d2.to(torch.float32)
+
+
+def _patches_1d_y(arr: torch.Tensor, radius: int) -> torch.Tensor:
+    """(H, W) -> (H, W, K) vertical window taps, edge-replicated in y."""
+    return preprocess.pad_edge(arr, 0, radius, radius).unfold(0, 2 * radius + 1, 1)
+
+
+def _patches_1d_x(arr: torch.Tensor, radius: int) -> torch.Tensor:
+    """x-extended (H, W + 2r) -> (H, W, K) horizontal taps, VALID slide."""
+    return arr.unfold(1, 2 * radius + 1, 1)
+
+
+def _bilateral_1d(lab: torch.Tensor, cfg: StereoConfig, axis: str) -> torch.Tensor:
+    """1D bilateral weight planes w(p, p + o*e_axis) -> (H, W_out, K).
+
+    axis "y": taps run down the column (edge-replicated rows), W_out = W.
+    axis "x": lab is pre-extended by r per side and taps slide VALID,
+    W_out = W - 2r.  Spatial factor exp(-|o| / gamma_p), the separable (L1)
+    form, multiplied after the color factor.
+    """
+    r = cfg.window_radius
+    if axis == "y":
+        patches, center = _patches_1d_y, lab
+    else:
+        patches, center = _patches_1d_x, lab[:, r : lab.shape[1] - r]
+    d2 = None
+    for c in range(3):
+        diff = patches(lab[..., c], r) - center[..., c : c + 1]
+        d2 = diff * diff if d2 is None else d2 + diff * diff
+    aw = torch.from_numpy(axial_weights_np(cfg)).to(lab.device)
+    return (torch.exp(-torch.sqrt(d2) / cfg.gamma_color) * aw).to(torch.float32)
+
+
+def aggregate_asw_separable_from_stacks(
+    l_stack_ext: torch.Tensor,
+    r_stack_ext: torch.Tensor,
+    cfg: StereoConfig,
+    d_indices=None,
+    storage_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Two-pass separable ASW from pre-extended channel stacks.
+
+    The documented speed-mode approximation of Yoon-Kweon (``asw_separable``):
+
+        numv[y, u, d] = sum_dy wvL(y, u; dy) wvR(y, u-d; dy) C[y+dy-r, u, d]
+        num [y, x, d] = sum_dx whL(y, x; dx) whR(y, x-d; dx) numv[y, x+dx-r, d]
+
+    (denominators the same sums without C; right factors only in symmetric
+    mode), so the window weight is wh(p, p + dx e_x) * wv(p + dx e_x, dy e_y)
+    with spatial factor exp(-(|dy| + |dx|) / gamma_p).  Borders as
+    ``aggregate_asw_from_stacks``: y taps read edge-clamped rows, the
+    horizontal weights re-extend the Lab plane by r with edge replicas, and
+    the right factor at step d reads the window starting at (D-1) - d of the
+    right stack's extended domain.  Returns (H, W, len(d_indices)).
+
+    ``storage_dtype`` rounds each raw cost plane to that dtype and back
+    before aggregation (the separable kernel's ``volume_dtype="bfloat16"``
+    storage mode); accumulation stays float32.
+    """
+    r = cfg.window_radius
+    D = cfg.max_disparity
+    we = l_stack_ext.shape[2]  # W + 2r
+
+    planes = cost_ops.planes_from_stacks(l_stack_ext, r_stack_ext, r)
+    lab_l = torch.movedim(l_stack_ext[4:7], 0, -1)  # (H, W + 2r, 3)
+    # Vertical weights for every column the horizontal pass can tap.
+    wvl = _bilateral_1d(lab_l, cfg, "y")  # (H, W + 2r, K)
+    # Horizontal weights need taps r beyond the centers: re-extend by edge
+    # replication (identical to the virtual plane's columns there).
+    whl = _bilateral_1d(preprocess.pad_edge(lab_l, 1, r, r), cfg, "x")[:, r : we - r]
+    if cfg.asw_symmetric:
+        lab_r = torch.movedim(r_stack_ext[4:7], 0, -1)  # (H, W + 2r + D - 1, 3)
+        wvr = _bilateral_1d(lab_r, cfg, "y")
+        whr = _bilateral_1d(preprocess.pad_edge(lab_r, 1, r, r), cfg, "x")
+
+    out = []
+    for d in range(D) if d_indices is None else d_indices:
+        d = int(d)
+        plane = cost_ops.cost_plane(planes, d, cfg)  # (H, W + 2r)
+        if storage_dtype is not None:
+            plane = plane.to(storage_dtype).to(torch.float32)
+        start = (D - 1) - d
+        wv, wh = wvl, whl
+        if cfg.asw_symmetric:
+            wv = wv * wvr[:, start : start + we]
+            wh = wh * whr[:, start + r : start + we - r]
+        numv = (wv * _patches_1d_y(plane, r)).sum(dim=-1)  # (H, W + 2r)
+        denv = wv.sum(dim=-1)
+        num = (wh * _patches_1d_x(numv, r)).sum(dim=-1)  # (H, W)
+        den = (wh * _patches_1d_x(denv, r)).sum(dim=-1)
+        out.append((num / den).to(torch.float32))
+    return torch.stack(out, dim=-1)
 
 
 def aggregate_box(vol_ext: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
@@ -105,10 +202,11 @@ def aggregate_asw_from_stacks(
     preprocess.channel_stack layout, columns edge-extended per the pinned
     padded-plane semantics.  Returns (H, W, D).  Each step builds its tap and
     weight planes and frees them before the next, so peak memory stays at a
-    few (H, W, K^2) planes whatever D is.
+    few (H, W, K^2) planes whatever D is.  A separable config goes to
+    ``aggregate_asw_separable_from_stacks``.
     """
     if cfg.asw_separable:
-        raise NotImplementedError("separable ASW is not ported yet")
+        return aggregate_asw_separable_from_stacks(l_stack_ext, r_stack_ext, cfg)
     r = cfg.window_radius
     D = cfg.max_disparity
     w = l_stack_ext.shape[2] - 2 * r

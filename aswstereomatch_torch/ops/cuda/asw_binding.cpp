@@ -1,8 +1,10 @@
-// PyTorch binding of the fused ASW kernel (asw_kernel.cu) as the operator
-// torch.ops.asw_torch.asw_wta.  Checks its inputs, allocates the outputs
-// and launches on the current CUDA stream; a launch error raises.  It has
-// only a CUDA implementation: CPU tensors take the plain PyTorch version in
-// ops/cuda/asw_kernel.py before they get here.
+// PyTorch binding of the port's CUDA kernels as the operators
+// torch.ops.asw_torch.asw_wta (fused exact ASW, asw_kernel.cu) and
+// torch.ops.asw_torch.asw_sep_wta (separable ASW, asw_sep_kernel.cu).  Each
+// checks its inputs, allocates the outputs and scratch and launches on the
+// current CUDA stream; a launch error raises.  They have only a CUDA
+// implementation: CPU tensors take the plain PyTorch versions in
+// ops/cuda/asw_kernel.py and ops/cuda/asw_sep_kernel.py before they get here.
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -19,6 +21,13 @@ extern "C" int asw_wta_launch(
     float tau_color, float tau_grad, float inv_gamma_color, float inv_n,
     int* bestd, float* bestc, float* cm, float* cp, float* ubest,
     unsigned long long* rpack, int* rbestd, void* stream);
+extern "C" int asw_sep_wta_launch(
+    const float* ls, const float* rs, const float* aw, int H, int W, int r,
+    int D, int sym, int cost_ad, int bf16, float alpha, float one_minus_alpha,
+    float tau_color, float tau_grad, float inv_gamma_color, float* wvl,
+    float* whl, float* wvr, float* whr, int* bestd, float* bestc, float* cm,
+    float* cp, float* ubest, unsigned long long* rpack, int* rbestd,
+    void* stream);
 extern "C" const char* asw_error_string(int err);
 
 namespace {
@@ -78,6 +87,63 @@ asw_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& sw,
   return {bestd, bestc, cm, cp, ubest, rbestd};
 }
 
+std::tuple<at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor>
+asw_sep_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& aw,
+            int64_t r, int64_t D, int64_t sym, int64_t cost_ad, int64_t bf16,
+            double alpha, double one_minus_alpha, double tau_color,
+            double tau_grad, double inv_gamma_color) {
+  check_input(ls, "ls", 3);
+  check_input(rs, "rs", 3);
+  check_input(aw, "aw", 1);
+  TORCH_CHECK(r >= 0 && r <= 32 && D >= 1, "need 0 <= r <= 32 and D >= 1");
+  const int64_t H = ls.size(1);
+  const int64_t W = ls.size(2) - 2 * r;
+  const int64_t K = 2 * r + 1;
+  TORCH_CHECK(ls.size(0) == 7 && rs.size(0) == 7, "stacks need 7 channels");
+  TORCH_CHECK(H >= 1 && W >= 1, "empty image");
+  TORCH_CHECK(rs.size(1) == H && rs.size(2) == W + 2 * r + D - 1,
+              "rs must be (7, H, W + 2r + D - 1)");
+  TORCH_CHECK(aw.size(0) == K, "aw must be (K,)");
+  TORCH_CHECK(rs.device() == ls.device() && aw.device() == ls.device(),
+              "inputs must share one device");
+  TORCH_CHECK(H * K * (W + 2 * r + D - 1) < (int64_t)1 << 31, "image too large");
+
+  c10::cuda::CUDAGuard guard(ls.device());
+  const auto f32 = ls.options();
+  const auto i32 = ls.options().dtype(at::kInt);
+  // 1-D weight planes (scratch), (H, K, columns).
+  at::Tensor wvl = at::empty({H, K, W + 2 * r}, f32);
+  at::Tensor whl = at::empty({H, K, W}, f32);
+  at::Tensor wvr, whr;
+  if (sym) {
+    wvr = at::empty({H, K, W + 2 * r + D - 1}, f32);
+    whr = at::empty({H, K, W + D - 1}, f32);
+  }
+  at::Tensor bestd = at::empty({H, W}, i32);
+  at::Tensor bestc = at::empty({H, W}, f32);
+  at::Tensor cm = at::empty({H, W}, f32);
+  at::Tensor cp = at::empty({H, W}, f32);
+  at::Tensor ubest = at::empty({H, W}, f32);
+  at::Tensor rbestd = at::empty({H, W}, i32);
+  at::Tensor rpack = at::full({H, W}, -1, ls.options().dtype(at::kLong));
+
+  const int err = asw_sep_wta_launch(
+      ls.data_ptr<float>(), rs.data_ptr<float>(), aw.data_ptr<float>(),
+      (int)H, (int)W, (int)r, (int)D, (int)(sym != 0), (int)cost_ad,
+      (int)(bf16 != 0), (float)alpha, (float)one_minus_alpha,
+      (float)tau_color, (float)tau_grad, (float)inv_gamma_color,
+      wvl.data_ptr<float>(), whl.data_ptr<float>(),
+      sym ? wvr.data_ptr<float>() : nullptr,
+      sym ? whr.data_ptr<float>() : nullptr,
+      bestd.data_ptr<int>(), bestc.data_ptr<float>(), cm.data_ptr<float>(),
+      cp.data_ptr<float>(), ubest.data_ptr<float>(),
+      reinterpret_cast<unsigned long long*>(rpack.data_ptr<int64_t>()),
+      rbestd.data_ptr<int>(),
+      c10::cuda::getCurrentCUDAStream(ls.get_device()).stream());
+  TORCH_CHECK(err == 0, "asw_sep_wta launch failed: ", asw_error_string(err));
+  return {bestd, bestc, cm, cp, ubest, rbestd};
+}
+
 }  // namespace
 
 TORCH_LIBRARY(asw_torch, m) {
@@ -86,6 +152,14 @@ TORCH_LIBRARY(asw_torch, m) {
       "int cost_ad, float alpha, float one_minus_alpha, float tau_color, "
       "float tau_grad, float inv_gamma_color) "
       "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def(
+      "asw_sep_wta(Tensor ls, Tensor rs, Tensor aw, int r, int D, int sym, "
+      "int cost_ad, int bf16, float alpha, float one_minus_alpha, "
+      "float tau_color, float tau_grad, float inv_gamma_color) "
+      "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
 }
 
-TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) { m.impl("asw_wta", &asw_wta); }
+TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
+  m.impl("asw_wta", &asw_wta);
+  m.impl("asw_sep_wta", &asw_sep_wta);
+}

@@ -1,0 +1,116 @@
+// Device helpers shared by the fused exact kernel (asw_kernel.cu) and the
+// separable kernel (asw_sep_kernel.cu): the raw matching cost of one tap,
+// the bilateral weight, the online left-view WTA state and the right-view
+// fold.
+//
+// Numerics: float32, IEEE division; no fast math.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kThird = 1.f / 3.f;  // (float)(1 / 3), as the TPU kernels round it
+
+// TAD + gradient (or AD) cost of one tap from the left sample (l0, l1, l2,
+// lg) and the right sample (r0, r1, r2, rg).  P carries cost_ad, alpha,
+// one_minus_alpha, tau_color and tau_grad.  With kUnfused the two products
+// and their sum are rounded one by one, as the plain version's separate
+// tensor ops round them, instead of contracting into an FMA: the raw cost
+// is then the plain version's bit for bit, which a kernel that rounds it
+// to bfloat16 needs (a last-bit difference can move the bf16 rounding by a
+// whole bf16 step).
+template <bool kUnfused = false, class P>
+__device__ __forceinline__ float tap_cost(const P& p, float l0, float l1,
+                                          float l2, float lg, float r0,
+                                          float r1, float r2, float rg) {
+  float ad = (fabsf(l0 - r0) + fabsf(l1 - r1) + fabsf(l2 - r2)) * kThird;
+  if (p.cost_ad) return ad;
+  const float tc = fminf(ad, p.tau_color);
+  const float tg = fminf(fabsf(lg - rg), p.tau_grad);
+  if (kUnfused)
+    return __fadd_rn(__fmul_rn(p.alpha, tc), __fmul_rn(p.one_minus_alpha, tg));
+  return p.alpha * tc + p.one_minus_alpha * tg;
+}
+
+// Bilateral weight of a tap: the color factor exp(-|Lab(tap) - Lab(centre)|
+// / gamma_c), with 1 / gamma_c rounded to float32 (p.inv_gamma_color), times
+// the spatial factor.  The tap (a0, a1, a2) and centre (c0, c1, c2) are Lab.
+template <class P>
+__device__ __forceinline__ float bilateral(const P& p, float a0, float a1,
+                                           float a2, float c0, float c1,
+                                           float c2, float spatial) {
+  float e0 = a0 - c0, e1 = a1 - c1, e2 = a2 - c2;
+  float d2 = e0 * e0 + e1 * e1 + e2 * e2;
+  return expf(-sqrtf(d2) * p.inv_gamma_color) * spatial;
+}
+
+// Online WTA over d in ascending order (asw_kernel.py:275-323): the
+// first-occurrence argmin, the parabola triple (C at bestd - 1 and
+// bestd + 1) and the three next-best (cost, d) pairs for ubest.
+struct Wta {
+  float bestc, cm, cp, prev;
+  int bestd;
+  float c1, c2, c3;
+  int d1, d2, d3;
+
+  __device__ Wta()
+      : bestc(INFINITY), cm(0.f), cp(0.f), prev(0.f), bestd(0),
+        c1(INFINITY), c2(INFINITY), c3(INFINITY),
+        d1(-9), d2(-9), d3(-9) {}
+
+  __device__ __forceinline__ void update(float agg, int d) {
+    // Pending C(d*+1) capture, then strict-< update.
+    if (bestd == d - 1) cp = agg;
+    const bool better = agg < bestc;
+    if (better) cm = prev;
+    // Sorted insert into ranks 1..3 below the best (ubest tracking).
+    const bool lt1 = agg < c1, lt2 = agg < c2, lt3 = agg < c3;
+    const float n3c = lt2 ? c2 : (lt3 ? agg : c3);
+    const int n3d = lt2 ? d2 : (lt3 ? d : d3);
+    const float n2c = lt1 ? c1 : (lt2 ? agg : c2);
+    const int n2d = lt1 ? d1 : (lt2 ? d : d2);
+    const float n1c = better ? bestc : (lt1 ? agg : c1);
+    const int n1d = better ? bestd : (lt1 ? d : d1);
+    c3 = n3c; d3 = n3d; c2 = n2c; d2 = n2d; c1 = n1c; d1 = n1d;
+    if (better) {
+      bestc = agg;
+      bestd = d;
+    }
+    prev = agg;
+  }
+
+  // Second-best cost excluding d within +-1 of the final winner.
+  __device__ __forceinline__ float ubest() const {
+    float u = INFINITY;
+    if (abs(d1 - bestd) > 1) u = fminf(u, c1);
+    if (abs(d2 - bestd) > 1) u = fminf(u, c2);
+    if (abs(d3 - bestd) > 1) u = fminf(u, c3);
+    return u;
+  }
+};
+
+// Right view: fold the candidate C_R(x - d, d) = agg into its pixel's slot
+// with an atomicMin on (float bits << 32 | d).  Costs are >= 0, so the
+// unsigned order of the packed word is (cost, then lower d): the
+// first-occurrence argmin over d, whatever the order blocks run in.
+__device__ __forceinline__ void fold_right(unsigned long long* slot, float agg,
+                                           int d) {
+  const unsigned long long packed =
+      ((unsigned long long)__float_as_uint(agg) << 32) | (unsigned)d;
+  // Values only decrease, so a stale read can only cause a needless
+  // atomic, never a skipped one.
+  if (packed < *slot) atomicMin(slot, packed);
+}
+
+__global__ void unpack_right_kernel(const unsigned long long* __restrict__ rpack,
+                                    int* __restrict__ rbestd, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // Every right pixel x' has at least the candidate d = 0 from left x = x'.
+  if (i < n) rbestd[i] = (int)(rpack[i] & 0xffffffffull);
+}
+
+}  // namespace

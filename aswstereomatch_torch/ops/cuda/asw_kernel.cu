@@ -27,22 +27,23 @@
 // 25 other float operations, over inputs that stay in L1/L2 (the two stacks
 // of a KITTI pair are about 28 MB).  The design walks d in chunks of DCHUNK
 // so that a tap's left samples and left weight (one expf + sqrtf) are loaded
-// and computed once per chunk instead of once per d.  Every pixel sums its
-// taps in one fixed (dy, dx) order, whatever block it lands in.
+// and computed once per chunk instead of once per d.  The function needs
+// less than the kernel does: a right weight depends on x - d only and a raw
+// cost is shared by K^2 windows, so its least work is a weight product, an
+// FMA and an add per tap, ~4 ms at KITTI on the card's FP32 peak (k1_bound
+// in chip_smoke.py).  Every pixel sums its taps in one fixed (dy, dx)
+// order, whatever block it lands in.
 //
 // Numerics: float32 throughout, IEEE expf / sqrtf / division (this file
 // must not be built with --use_fast_math).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "asw_common.cuh"
 
 namespace {
 
 constexpr int DCHUNK = 8;
 constexpr int BLOCK_X = 32;
 constexpr int BLOCK_Y = 4;
-constexpr float kThird = 1.f / 3.f;  // (float)(1 / 3), as the TPU kernel rounds it
 
 enum Mode { kSymmetric = 0, kLeftOnly = 1, kBox = 2 };
 
@@ -54,23 +55,6 @@ struct Params {
   float inv_gamma_color;  // (float)(1 / gamma_color)
   float inv_n;            // (float)(1 / K^2), box mode
 };
-
-__device__ __forceinline__ float tap_cost(const Params& p, float l0, float l1,
-                                          float l2, float lg, float r0,
-                                          float r1, float r2, float rg) {
-  float ad = (fabsf(l0 - r0) + fabsf(l1 - r1) + fabsf(l2 - r2)) * kThird;
-  if (p.cost_ad) return ad;
-  return p.alpha * fminf(ad, p.tau_color) +
-         p.one_minus_alpha * fminf(fabsf(lg - rg), p.tau_grad);
-}
-
-__device__ __forceinline__ float bilateral(const Params& p, float a0, float a1,
-                                           float a2, float c0, float c1,
-                                           float c2, float spatial) {
-  float e0 = a0 - c0, e1 = a1 - c1, e2 = a2 - c2;
-  float d2 = e0 * e0 + e1 * e1 + e2 * e2;
-  return expf(-sqrtf(d2) * p.inv_gamma_color) * spatial;
-}
 
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 asw_wta_kernel(const float* __restrict__ ls, const float* __restrict__ rs,
@@ -95,11 +79,7 @@ asw_wta_kernel(const float* __restrict__ ls, const float* __restrict__ rs,
   const size_t cl = (size_t)y * WL + x + r;
   const float cl0 = ls[4 * PL + cl], cl1 = ls[5 * PL + cl], cl2 = ls[6 * PL + cl];
 
-  // Online WTA state (asw_kernel.py:275-323).
-  float bestc = CUDART_INF_F, cm = 0.f, cp = 0.f, prev = 0.f;
-  int bestd = 0;
-  float c1 = CUDART_INF_F, c2 = CUDART_INF_F, c3 = CUDART_INF_F;
-  int d1 = -9, d2 = -9, d3 = -9;
+  Wta wta;
 
   for (int d0 = 0; d0 < D; d0 += DCHUNK) {
     float num[DCHUNK], den[DCHUNK];
@@ -163,56 +143,18 @@ asw_wta_kernel(const float* __restrict__ ls, const float* __restrict__ rs,
       if (d >= D) break;
       const float agg = box ? num[j] * p.inv_n
                             : num[j] / (sym ? den[j] : den_left);
-      // Left view: pending C(d*+1) capture, then strict-< update.
-      if (bestd == d - 1) cp = agg;
-      const bool better = agg < bestc;
-      if (better) cm = prev;
-      // Sorted insert into ranks 1..3 below the best (ubest tracking).
-      const bool lt1 = agg < c1, lt2 = agg < c2, lt3 = agg < c3;
-      const float n3c = lt2 ? c2 : (lt3 ? agg : c3);
-      const int n3d = lt2 ? d2 : (lt3 ? d : d3);
-      const float n2c = lt1 ? c1 : (lt2 ? agg : c2);
-      const int n2d = lt1 ? d1 : (lt2 ? d : d2);
-      const float n1c = better ? bestc : (lt1 ? agg : c1);
-      const int n1d = better ? bestd : (lt1 ? d : d1);
-      c3 = n3c; d3 = n3d; c2 = n2c; d2 = n2d; c1 = n1c; d1 = n1d;
-      if (better) {
-        bestc = agg;
-        bestd = d;
-      }
-      prev = agg;
+      wta.update(agg, d);
       // Right view: C_R(x - d, d) = agg.
-      const int xr = x - d;
-      if (xr >= 0) {
-        const unsigned long long packed =
-            ((unsigned long long)__float_as_uint(agg) << 32) | (unsigned)d;
-        unsigned long long* slot = rpack + (size_t)y * p.W + xr;
-        // Values only decrease, so a stale read can only cause a needless
-        // atomic, never a skipped one.
-        if (packed < *slot) atomicMin(slot, packed);
-      }
+      if (x - d >= 0) fold_right(rpack + (size_t)y * p.W + x - d, agg, d);
     }
   }
 
-  // Second-best cost excluding d within +-1 of the final winner.
-  float u = CUDART_INF_F;
-  if (abs(d1 - bestd) > 1) u = fminf(u, c1);
-  if (abs(d2 - bestd) > 1) u = fminf(u, c2);
-  if (abs(d3 - bestd) > 1) u = fminf(u, c3);
-
   const size_t o = (size_t)y * p.W + x;
-  bestd_out[o] = bestd;
-  bestc_out[o] = bestc;
-  cm_out[o] = cm;
-  cp_out[o] = cp;
-  ubest_out[o] = u;
-}
-
-__global__ void unpack_right_kernel(const unsigned long long* __restrict__ rpack,
-                                    int* __restrict__ rbestd, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  // Every right pixel x' has at least the candidate d = 0 from left x = x'.
-  if (i < n) rbestd[i] = (int)(rpack[i] & 0xffffffffull);
+  bestd_out[o] = wta.bestd;
+  bestc_out[o] = wta.bestc;
+  cm_out[o] = wta.cm;
+  cp_out[o] = wta.cp;
+  ubest_out[o] = wta.ubest();
 }
 
 }  // namespace

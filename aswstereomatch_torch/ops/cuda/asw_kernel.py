@@ -12,19 +12,20 @@ is hand-written CUDA (``asw_kernel.cu``, bound as
 
 On a CUDA tensor the wrapper launches the kernel (and raises if it cannot);
 on a CPU tensor it computes the plain PyTorch version from the materialized
-aggregated volume.  ``wta_outputs_reference`` is that plain version on any
-device: the tests and chip_smoke.py compare the kernel against it.
+aggregated volume.  ``wta_outputs_reference`` (``reference_from_stacks``
+over pre-extended stacks) is that plain version on any device: the tests
+and chip_smoke.py compare the kernel against it.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ...config import StereoConfig
-from .. import aggregate, postprocess, preprocess, wta
-from ...utils.convert import constant_tables
+from .. import aggregate
+from ...utils.convert import spatial_weights_np
 from . import build
+from .common import PLANES, device_table, dispatch, f32, stacks, wta_planes
 
 # Kernel launches since the last reset (chip_smoke.py reads this to show
 # that the main path went through the kernel).
@@ -32,9 +33,9 @@ launches = 0
 
 
 def supports(cfg: StereoConfig) -> bool:
-    """The fused kernel covers ASW (both weight modes) and box aggregation,
-    for both costs; aggregation='none', SGM and the separable approximation
-    are not its function."""
+    """The fused kernel covers exact ASW (both weight modes) and box
+    aggregation, for both costs; aggregation='none' and SGM are not its
+    function, and the separable approximation is ``asw_sep_kernel``'s."""
     return cfg.aggregation in ("asw", "box") and not cfg.asw_separable
 
 
@@ -45,31 +46,24 @@ def _mode(cfg: StereoConfig) -> int:
     return 0 if cfg.asw_symmetric else 1
 
 
-def _stacks(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig):
-    """Edge-extended channel stacks: (7, H, W + 2r) and (7, H, W + 2r + D - 1)."""
-    r = cfg.window_radius
-    D = cfg.max_disparity
-    ls_ext = preprocess.pad_edge(preprocess.channel_stack(left), 2, r, r)
-    rs_ext = preprocess.pad_edge(preprocess.channel_stack(right), 2, r + D - 1, r)
-    return ls_ext, rs_ext
-
-
-def _plain_from_stacks(ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig) -> dict:
-    """The kernel's function in plain PyTorch, from the materialized
-    aggregated volume (the forms ``aggregate.aggregated_volume`` uses)."""
+def reference_from_stacks(ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig) -> dict:
+    """The kernel's function in plain PyTorch over pre-extended channel
+    stacks, on any device, from the materialized aggregated volume (the
+    forms ``aggregate.aggregated_volume`` uses)."""
+    _check(cfg)
     if cfg.aggregation == "box":
         vol = aggregate.aggregate_box(aggregate.cost_volume_from_stacks(ls_ext, rs_ext, cfg), cfg)
     else:
         vol = aggregate.aggregate_asw_from_stacks(ls_ext, rs_ext, cfg)
-    out = wta.wta_with_triple(vol)
-    out["rbestd"] = wta.wta(postprocess.right_volume(vol))
-    out["ubest"] = wta.second_best_excl_neighbors(vol, out["bestd"])
-    return out
+    return wta_planes(vol)
 
 
 def _check(cfg: StereoConfig) -> None:
     if not supports(cfg):
-        raise ValueError("the fused kernel requires aggregation 'asw' or 'box'")
+        raise ValueError(
+            "the fused kernel requires exact aggregation 'asw' or 'box' "
+            "(separable ASW is asw_sep_kernel's)"
+        )
 
 
 def wta_outputs_reference(
@@ -77,13 +71,13 @@ def wta_outputs_reference(
 ) -> dict:
     """Plain PyTorch version of the kernel's function, on any device."""
     _check(cfg)
-    return _plain_from_stacks(*_stacks(left, right, cfg), cfg)
+    return reference_from_stacks(*stacks(left, right, cfg), cfg)
 
 
 def wta_outputs(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> dict:
     """Run the fused kernel over one pair of (H, W[, 3]) float32 images."""
     _check(cfg)
-    return wta_outputs_from_stacks(*_stacks(left, right, cfg), cfg)
+    return wta_outputs_from_stacks(*stacks(left, right, cfg), cfg)
 
 
 def wta_outputs_from_stacks(
@@ -95,23 +89,14 @@ def wta_outputs_from_stacks(
     per the padded-plane rule.
     """
     _check(cfg)
-    if ls_ext.device.type == "cpu":
-        return _plain_from_stacks(ls_ext, rs_ext, cfg)
-    if ls_ext.device.type != "cuda":
-        raise ValueError(f"no kernel for device {ls_ext.device}")
-    return _launch(ls_ext, rs_ext, cfg)
-
-
-def _f32(v: float) -> float:
-    """A kernel constant, rounded to float32 as the Pallas kernel rounds it."""
-    return float(np.float32(v))
+    return dispatch(ls_ext, rs_ext, cfg, reference_from_stacks, _launch)
 
 
 def _launch(ls_ext, rs_ext, cfg) -> dict:
     global launches
     build.load()
-    sw = constant_tables(cfg, ls_ext.device)["spatial_weights"]
-    bestd, bestc, cm, cp, ubest, rbestd = torch.ops.asw_torch.asw_wta(
+    sw = device_table(spatial_weights_np, cfg, ls_ext.device)
+    outs = torch.ops.asw_torch.asw_wta(
         ls_ext.to(torch.float32).contiguous(),
         rs_ext.to(torch.float32).contiguous(),
         sw,
@@ -119,14 +104,11 @@ def _launch(ls_ext, rs_ext, cfg) -> dict:
         cfg.max_disparity,
         _mode(cfg),
         int(cfg.cost == "ad"),
-        _f32(cfg.alpha),
-        _f32(1.0 - cfg.alpha),
-        _f32(cfg.tau_color),
-        _f32(cfg.tau_grad),
-        _f32(1.0 / cfg.gamma_color),
+        f32(cfg.alpha),
+        f32(1.0 - cfg.alpha),
+        f32(cfg.tau_color),
+        f32(cfg.tau_grad),
+        f32(1.0 / cfg.gamma_color),
     )
     launches += 1
-    return {
-        "bestd": bestd, "bestc": bestc, "cm": cm, "cp": cp,
-        "ubest": ubest, "rbestd": rbestd,
-    }
+    return dict(zip(PLANES, outs))

@@ -1,14 +1,15 @@
 """Build the port's CUDA kernels from the sources in this directory.
 
 ``load()`` compiles ``*.cu`` with ``nvcc`` for ``sm_90a`` (Hopper) and
-``*.cpp`` with the host C++ compiler against PyTorch's headers, links one
-shared library, and loads it with ``torch.ops.load_library``, which
-registers ``torch.ops.asw_torch.*``.  The library is kept under ``_build/``
-(listed in .gitignore), keyed by a hash of the sources, the PyTorch version
-and the flags, so editing a source rebuilds it and a second process reuses
-it.  The kernel sources carry a plain C interface and do not include
-PyTorch's headers, so nvcc takes seconds; only the small binding file
-includes them.
+``*.cpp`` with the host C++ compiler against PyTorch's headers, one process
+per source, all started together; then it links one shared library and
+loads it with ``torch.ops.load_library``, which registers
+``torch.ops.asw_torch.*``.  The library is kept under ``_build/`` (listed in
+.gitignore), keyed by a hash of the sources and headers (``*.cuh``), the
+PyTorch version and the flags, so editing a source rebuilds it and a second
+process reuses it.  The kernel sources carry a plain C interface and do not
+include PyTorch's headers, so nvcc takes seconds; only the small binding
+file includes them.
 
 A build or load failure raises ``BuildError`` with the compiler's output.
 Nothing catches it to carry on without the kernel.
@@ -55,7 +56,7 @@ def _cuda_home() -> Path:
 
 def _build_key() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(torch.__version__.encode())
@@ -63,18 +64,28 @@ def _build_key() -> str:
     return h.hexdigest()[:16]
 
 
-def _run(cmd: list[str], log: list[str]) -> None:
-    log.append("$ " + " ".join(cmd))
+def _run_all(cmds: list[list[str]], log: list[str]) -> None:
+    """Run the commands concurrently; raise on the first that failed, after
+    every one has ended."""
+    procs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
     except FileNotFoundError as e:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
         raise BuildError(f"compiler not found: {e}") from e
-    log.append(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise BuildError(
-            f"command failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log.append("$ " + " ".join(cmd))
+        log.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"command failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+    if failed is not None:
+        raise BuildError(failed)
 
 
 def _compile(out: Path) -> list[str]:
@@ -90,21 +101,22 @@ def _compile(out: Path) -> list[str]:
     ]
     abi = f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"
     log: list[str] = []
-    objs = []
+    objs, cmds = [], []
     for src in _sources():
-        obj = out.parent / (src.name + ".o")
+        obj = str(out.parent / (src.name + ".o"))
         if src.suffix == ".cu":
-            _run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)], log)
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj])
         else:
-            _run([cxx, *CXX_FLAGS, abi, *includes, "-c", str(src), "-o", str(obj)], log)
-        objs.append(str(obj))
+            cmds.append([cxx, *CXX_FLAGS, abi, *includes, "-c", str(src), "-o", obj])
+        objs.append(obj)
+    _run_all(cmds, log)
     torch_lib = str(torch_dir / "lib")
-    _run(
-        [nvcc, "-shared", "-cudart", "shared", *objs, "-o", str(out),
-         "-L", torch_lib, "-lc10", "-lc10_cuda", "-ltorch_cpu", "-ltorch",
-         "-L", str(cuda / "lib64"),
-         "-Xlinker", f"-rpath,{torch_lib}",
-         "-Xlinker", f"-rpath,{cuda / 'lib64'}"],
+    _run_all(
+        [[nvcc, "-shared", "-cudart", "shared", *objs, "-o", str(out),
+          "-L", torch_lib, "-lc10", "-lc10_cuda", "-ltorch_cpu", "-ltorch",
+          "-L", str(cuda / "lib64"),
+          "-Xlinker", f"-rpath,{torch_lib}",
+          "-Xlinker", f"-rpath,{cuda / 'lib64'}"]],
         log,
     )
     return log

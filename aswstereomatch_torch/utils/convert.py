@@ -1,8 +1,9 @@
 """Carry the reference's state across to the port.
 
-The system has no learned weights: a ``StereoConfig`` plus two constant
-tables — the (K, K) spatial weights of the ASW window and the 256-entry sRGB
-decode LUT — are its whole parameter set.
+The system has no learned weights: a ``StereoConfig`` plus three constant
+tables — the (K, K) spatial weights of the ASW window, the (K,) axial weights
+of the separable passes and the 256-entry sRGB decode LUT — are its whole
+parameter set.
 """
 
 from __future__ import annotations
@@ -34,10 +35,20 @@ def spatial_weights_np(cfg: StereoConfig) -> np.ndarray:
     return np.exp(-dist / cfg.gamma_spatial).astype(np.float32)
 
 
+def axial_weights_np(cfg: StereoConfig) -> np.ndarray:
+    """(K,) spatial factor exp(-|o| / gamma_p) of the separable passes (the
+    L1 form), computed in float64 and stored as float32."""
+    r = cfg.window_radius
+    o = np.abs(np.arange(-r, r + 1)).astype(np.float64)
+    return np.exp(-o / cfg.gamma_spatial).astype(np.float32)
+
+
 def constant_tables(cfg: StereoConfig, device) -> dict:
     """The config's constant tables as float32 tensors on ``device``:
-    ``spatial_weights`` (K, K) and ``srgb_lut`` (256,)."""
+    ``spatial_weights`` (K, K), ``axial_weights`` (K,) and ``srgb_lut``
+    (256,)."""
     return {
         "spatial_weights": torch.from_numpy(spatial_weights_np(cfg)).to(device),
+        "axial_weights": torch.from_numpy(axial_weights_np(cfg)).to(device),
         "srgb_lut": torch.from_numpy(SRGB_DECODE_LUT).to(device),
     }

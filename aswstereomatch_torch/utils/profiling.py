@@ -1,8 +1,8 @@
 """Where a pair's time goes on the card: host latency, device busy time by
 kernel, device idle share and peak memory for the main path.
 
-    python -m aswstereomatch_torch.utils.profiling [--geometry middlebury kitti]
-        [--pairs 3] [--out DIR]
+    python -m aswstereomatch_torch.utils.profiling
+        [--geometry middlebury kitti kitti_sep kitti_seplo] [--pairs 3] [--out DIR]
 
 For each geometry it builds the preset's ``StereoMatcher`` on cuda:0, makes
 one synthetic uint8 pair, runs one warm-up call (kernel build, allocator),
@@ -40,6 +40,8 @@ from . import synthetic
 GEOMETRIES = {
     "middlebury": ("middlebury_asw_full", 375, 450),
     "kitti": ("kitti_tiled", 375, 1242),
+    "kitti_sep": ("kitti_sep", 375, 1242),
+    "kitti_seplo": ("kitti_seplo", 375, 1242),
 }
 
 

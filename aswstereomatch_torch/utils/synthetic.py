@@ -1,8 +1,9 @@
 """Synthetic rectified stereo pairs with exact ground-truth disparity.
 
-A NumPy copy of ``aswstereomatch_tpu.utils.synthetic.make_pair`` (that
-package cannot be imported without jax); tests/test_torch_config.py holds the
-two byte-equal.  A textured background plane plus textured foreground
+NumPy copies of ``aswstereomatch_tpu.utils.synthetic.make_pair`` and
+``make_hard_pair`` (that package cannot be imported without jax); the tests
+(tests/test_torch_config.py, tests/test_torch_sep_pipeline.py) hold each
+copy byte-equal to the reference.  A textured background plane plus textured foreground
 rectangles, each at a constant (optionally fractional) disparity; both views
 are rendered from the same layer stack, so ground truth, occlusion masks and
 left/right consistency are exact by construction.
@@ -171,3 +172,37 @@ def make_pair(
         "occluded": occluded,
         "layer_left": layer_left,
     }
+
+
+def make_hard_pair(
+    height: int = 96,
+    width: int = 160,
+    max_disparity: int = 24,
+    seed: int = 0,
+    noise_sigma: float = 2.0,
+    right_gain: float = 0.92,
+    right_bias: float = 6.0,
+    flat_patches: int = 3,
+) -> Dict[str, np.ndarray]:
+    """Adversarial-regime pair for accuracy contracts: fractional layer
+    disparities, textureless patches, independent per-view sensor noise, and
+    a brightness/contrast mismatch between views (right = gain*right +
+    bias).  Geometry and ground truth stay exact; only photometry is
+    degraded.
+    """
+    rng = np.random.default_rng(seed + 9000)
+    pair = make_pair(
+        height=height,
+        width=width,
+        max_disparity=max_disparity,
+        num_layers=3,
+        seed=seed,
+        fractional=True,
+        flat_patches=flat_patches,
+    )
+    left = pair["left"] + rng.normal(0.0, noise_sigma, pair["left"].shape)
+    right = right_gain * pair["right"] + right_bias
+    right = right + rng.normal(0.0, noise_sigma, right.shape)
+    pair["left"] = np.round(np.clip(left, 0, 255)).astype(np.float32)
+    pair["right"] = np.round(np.clip(right, 0, 255)).astype(np.float32)
+    return pair

@@ -2,25 +2,41 @@
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure exits non-zero:
+Two kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu), and
+K2, the separable-ASW kernel (ops/cuda/asw_sep_kernel.cu).  Phases, one line
+each (two for a phase that covers both); any failure exits non-zero:
 
   1. device  — refuses to run without CUDA; prints the card's name and
                power limit (nvidia-smi) and the torch / CUDA versions;
-  2. build   — builds the fused ASW kernel from ops/cuda/ with nvcc (sm_90a);
-  3. small   — the kernel against its plain PyTorch version on the reference
-               kernel test's geometries (tests/test_pallas_kernel.py);
-  4. full    — the same comparison on a synthetic 450x375 pair, D=64, r=16;
+  2. build   — builds both kernels from ops/cuda/ (nvcc sm_90a, one library);
+  3. small   — each kernel against its plain PyTorch version on the
+               reference kernel tests' geometries (tests/test_pallas_kernel.py
+               for K1, tests/test_pallas_dlanes.py for K2, whose bfloat16
+               storage mode is held to its drift bar against float32);
+  4. full    — the same comparison at full width: K1 on a synthetic 450x375
+               pair, D=64, r=16; K2 with kitti_sep and kitti_seplo on a
+               1242x375 pair, D=128, r=16;
   5. serve   — StereoMatcher.from_preset("middlebury_asw_full") answers three
                uint8 requests and a batch of two, then kitti_tiled's config
-               matches one 1242x375 D=128 pair; launch counts are reset just
-               before and read just after, and every kernel of the path must
-               have launched;
-  6. times   — median ms per pair of the kernel, of its plain version and of
-               the end-to-end call, at both geometries (CUDA events).
+               matches one 1242x375 D=128 pair; then kitti_sep answers three
+               1242x375 requests and a batch of two and kitti_seplo one, and
+               the kitti_sep map of the kitti_tiled pair must stay within
+               SEP_CONTRACT of the exact one.  Launch counts are reset just
+               before each path and read just after it, and every kernel of
+               the path must have launched (K1 6 times, K2 6 times);
+  6. times   — median ms per pair (CUDA events) of each kernel's wrapper
+               and of its plain version, with the channel stacks built
+               inside (ms, plain_ms) and over the
+               same pre-built stacks (from_stacks_ms,
+               plain_from_stacks_ms), and of the end-to-end call
+               (e2e_ms): K1 at both geometries, K2 for both presets at
+               1242x375.
 
-Before the last line it prints one JSON object with a row per kernel; the last
-line is {"ok": true, "device": {...}}.  Imports torch, numpy and the port
-only (no jax).
+Before the last line it prints one JSON object with a row per kernel (its
+bound_ms from this run's shapes and the function's least work, see
+k1_bound / k2_bound); the last line is
+{"ok": true, "device": {...}}.  Imports torch, numpy and the port only (no
+jax).
 """
 
 from __future__ import annotations
@@ -59,37 +75,122 @@ SMALL_CASES = [
 ]
 
 
+# K2's phase-3 fixtures: tests/test_pallas_dlanes.py:273-290 (SEP, mostly
+# symmetric) and the left-only ones of :318-323.
+_SEP = dict(asw_separable=True, asw_symmetric=False)
+_SYM = dict(_SEP, asw_symmetric=True)
+SEP_SMALL_CASES = [
+    ("sep_sym", _SYM, (24, 40), dict(seed=3), True),
+    ("sep_leftonly", _SEP, (24, 40), dict(seed=3), True),
+    ("sep_ad_cost", dict(_SYM, cost="ad"), (24, 40), dict(seed=3), True),
+    ("sep_multitile_odd", _SYM, (21, 150), dict(seed=3), True),
+    ("sep_d16_r3", dict(_SYM, max_disparity=16, window_radius=3), (20, 100),
+     dict(seed=3), True),
+    ("sep_d128_multinb", dict(_SYM, max_disparity=128), (16, 192), dict(seed=3), True),
+    ("sep_k33_flagship", dict(_SYM, max_disparity=16, window_radius=16), (12, 80),
+     dict(seed=3), True),
+    ("sep_k65_boundary", dict(_SYM, max_disparity=16, window_radius=32), (10, 70),
+     dict(seed=3), True),
+    ("sep_leftonly_small", _SEP, (24, 40), dict(seed=3), True),
+    ("sep_leftonly_k33", dict(_SEP, max_disparity=16, window_radius=16), (12, 80),
+     dict(seed=3), True),
+]
+# K2's bfloat16 storage mode, both weight modes (test_pallas_dlanes.py:346-365)
+SEP_BF16_CASES = [("sep_bf16_sym", True), ("sep_bf16_leftonly", False)]
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, the dense rates at
+# the 700 W limit): FP32 outside the tensor cores, HBM3.  The special
+# function units (exp2, rsqrt) return 16 results per clock per SM against
+# 128 FP32 lanes doing 2 flops (an FMA) each: 1/16 of the FP32 flop rate.
+FP32_FLOPS = 67e12
+MUFU_OPS = FP32_FLOPS / 16
+HBM_BYTES = 3.35e12
+
+
+def _bound(flops: float, mufu: float, nbytes: float) -> tuple:
+    """(least ms, "operations" or "bytes"): the larger of the operation
+    time (FP32 flops and special-function ops at their peaks) and the byte
+    time over the memory rate."""
+    ops_s = max(flops / FP32_FLOPS, mufu / MUFU_OPS)
+    bytes_s = nbytes / HBM_BYTES
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes")
+
+
+def k1_bound(H: int, W: int, cfg) -> tuple:
+    """K1's function (exact ASW) at its least work.  Per (pixel, d, tap):
+    the weight product, the num FMA and the den add in symmetric mode (4
+    flops); in left-only mode only the num FMA, since den does not depend
+    on d (one add per (pixel, tap)).  Each distinct weight once, an expf +
+    sqrtf and ~10 flops: the left one per (pixel, tap), the right one per
+    (right column x - d, tap).  Each distinct raw cost once, ~12 flops per
+    (row, extended column, d).  Bytes: the two stacks in, six (H, W)
+    planes out."""
+    assert cfg.aggregation == "asw", "the bound counts ASW work"
+    r, D = cfg.window_radius, cfg.max_disparity
+    K = 2 * r + 1
+    sym = cfg.asw_symmetric
+    taps = H * W * D * K * K
+    weights = H * K * K * (W + ((W + D - 1) if sym else 0))
+    flops = (4 * taps if sym else 2 * taps + H * W * K * K)
+    flops += 10 * weights + 12 * H * (W + 2 * r) * D
+    nbytes = 4 * (7 * H * (W + 2 * r) + 7 * H * (W + 2 * r + D - 1) + 6 * H * W)
+    return _bound(flops, 2.0 * weights, nbytes)
+
+
+def k2_bound(H: int, W: int, cfg) -> tuple:
+    """K2's function (separable ASW) at its least work.  Symmetric mode:
+    per vertical tap (H*(W+2r)*D*K) the weight product, num FMA and den add
+    (4 flops), per horizontal tap (H*W*D*K) the weight product and two FMAs
+    (5 flops).  Left-only mode: one num FMA per tap, den once per (column,
+    tap), as it does not depend on d.  Each entry of the 1-D weight planes
+    once (an expf + sqrtf and ~10 flops); each raw cost once, ~12 flops per
+    (row, extended column, d).  Bytes: the stacks in, six (H, W) planes out
+    (the kernel's weight-plane scratch is not the function's)."""
+    r, D = cfg.window_radius, cfg.max_disparity
+    K = 2 * r + 1
+    sym = cfg.asw_symmetric
+    WL, WR = W + 2 * r, W + 2 * r + D - 1
+    vtaps, htaps = H * WL * D * K, H * W * D * K
+    entries = H * K * (WL + W + ((WR + W + D - 1) if sym else 0))
+    flops = (4 * vtaps + 5 * htaps if sym
+             else 2 * (vtaps + htaps) + H * K * (WL + 2 * W))
+    flops += 10 * entries + 12 * H * WL * D
+    nbytes = 4 * (7 * H * (WL + WR) + 6 * H * W)
+    return _bound(flops, 2.0 * entries, nbytes)
+
+
 def fail(msg: str) -> None:
     print(f"FAIL {msg}", flush=True)
     sys.exit(1)
 
 
+def _kernel_module(cfg):
+    from aswstereomatch_torch.ops.cuda import asw_kernel, asw_sep_kernel
+
+    return asw_sep_kernel if cfg.asw_separable else asw_kernel
+
+
 def check_small(name, overrides, shape, pair_kw, exact, device) -> dict:
-    """Kernel vs plain version on one phase-3 case; raises AssertionError."""
+    """Kernel vs plain version on one phase-3 case (K2 for a separable
+    config, else K1); raises AssertionError."""
     import torch
 
     from aswstereomatch_torch.config import StereoConfig
-    from aswstereomatch_torch.ops.cuda import asw_kernel
     from aswstereomatch_torch.utils import synthetic
 
     cfg = StereoConfig(**{**_BASE, **overrides})
+    kernel = _kernel_module(cfg)
     D = cfg.max_disparity
     p = synthetic.make_pair(height=shape[0], width=shape[1], max_disparity=D, **pair_kw)
     l = torch.from_numpy(p["left"]).to(device)
     r = torch.from_numpy(p["right"]).to(device)
-    got = {k: v.cpu().numpy() for k, v in asw_kernel.wta_outputs(l, r, cfg).items()}
-    ref = {k: v.cpu().numpy() for k, v in asw_kernel.wta_outputs_reference(l, r, cfg).items()}
+    got = {k: v.cpu().numpy() for k, v in kernel.wta_outputs(l, r, cfg).items()}
+    ref = {k: v.cpu().numpy() for k, v in kernel.wta_outputs_reference(l, r, cfg).items()}
     if exact:
-        # bars of test_pallas_kernel.py:55-71 and :160-162
-        np.testing.assert_array_equal(got["bestd"], ref["bestd"], err_msg=f"{name} bestd")
-        np.testing.assert_array_equal(got["rbestd"], ref["rbestd"], err_msg=f"{name} rbestd")
-        tol = dict(rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(got["bestc"], ref["bestc"], **tol, err_msg=f"{name} bestc")
-        bd = ref["bestd"]
-        mask = (bd > 0) & (bd < D - 1)
-        for k in ("cm", "cp"):
-            np.testing.assert_allclose(got[k][mask], ref[k][mask], **tol, err_msg=f"{name} {k}")
-        np.testing.assert_allclose(got["ubest"], ref["ubest"], **tol, err_msg=f"{name} ubest")
+        # bars of test_pallas_kernel.py:55-71 and :160-162 (K1) and
+        # test_pallas_dlanes.py:304-312 (K2: float sums in another order)
+        _check_exact(name, got, ref, D, dict(rtol=1e-4, atol=1e-3) if cfg.asw_separable
+                     else dict(rtol=1e-5, atol=1e-4))
     else:
         # box bars of test_pallas_kernel.py:173-178
         agree = float((got["bestd"] == ref["bestd"]).mean())
@@ -98,6 +199,59 @@ def check_small(name, overrides, shape, pair_kw, exact, device) -> dict:
         np.testing.assert_allclose(got["bestc"], ref["bestc"], rtol=1e-4, atol=1e-3,
                                    err_msg=f"{name} bestc")
     return {"case": name, "max_abs_err": float(np.abs(got["bestc"] - ref["bestc"]).max())}
+
+
+def _check_exact(name, got, ref, D, tol) -> None:
+    """Exact bestd / rbestd; bestc and ubest at ``tol``, cm / cp at ``tol``
+    where both neighbours of bestd exist.  Raises AssertionError."""
+    np.testing.assert_array_equal(got["bestd"], ref["bestd"], err_msg=f"{name} bestd")
+    np.testing.assert_array_equal(got["rbestd"], ref["rbestd"], err_msg=f"{name} rbestd")
+    np.testing.assert_allclose(got["bestc"], ref["bestc"], **tol, err_msg=f"{name} bestc")
+    bd = ref["bestd"]
+    mask = (bd > 0) & (bd < D - 1)
+    for k in ("cm", "cp"):
+        np.testing.assert_allclose(got[k][mask], ref[k][mask], **tol, err_msg=f"{name} {k}")
+    np.testing.assert_allclose(got["ubest"], ref["ubest"], **tol, err_msg=f"{name} ubest")
+
+
+def check_sep_bf16(name, sym, device) -> dict:
+    """K2's bfloat16 storage mode.  Against its own plain version at the
+    f32 cases' bars (exact bestd / rbestd, bestc rtol 1e-4 / atol 1e-3):
+    both round each raw cost to bf16, nearest-even.  Against the f32 kernel
+    at the drift bar of test_pallas_dlanes.py:360-365 (> 99.5% argmin
+    agreement, |delta| > 2 on < 0.2%, bestc within rtol / atol 1e-2), and
+    its bestc must differ from the f32 kernel's: the flag is honoured.
+    Raises AssertionError."""
+    import torch
+
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_sep_kernel
+    from aswstereomatch_torch.utils import synthetic
+
+    cfg32 = StereoConfig(**{**_BASE, **_SEP, "asw_symmetric": sym,
+                            "max_disparity": 32, "window_radius": 8})
+    cfg16 = cfg32.replace(volume_dtype="bfloat16")
+    p = synthetic.make_pair(height=40, width=120, max_disparity=32, seed=7)
+    l = torch.from_numpy(p["left"]).to(device)
+    r = torch.from_numpy(p["right"]).to(device)
+
+    def run(fn, cfg):
+        return {k: v.cpu().numpy() for k, v in fn(l, r, cfg).items()}
+
+    k16 = run(asw_sep_kernel.wta_outputs, cfg16)
+    p16 = run(asw_sep_kernel.wta_outputs_reference, cfg16)
+    k32 = run(asw_sep_kernel.wta_outputs, cfg32)
+    _check_exact(f"{name} vs bf16 plain", k16, p16, 32, dict(rtol=1e-4, atol=1e-3))
+    for k in ("bestd", "rbestd"):
+        agree = float(np.mean(k16[k] == k32[k]))
+        gross = float(np.mean(np.abs(k16[k] - k32[k]) > 2))
+        assert agree > 0.995 and gross < 0.002, (
+            f"{name} {k} vs f32 kernel: agree {agree}, |dd|>2 {gross}")
+    np.testing.assert_allclose(k16["bestc"], k32["bestc"], rtol=1e-2, atol=1e-2,
+                               err_msg=f"{name} bestc vs f32 kernel")
+    assert not np.array_equal(k16["bestc"], k32["bestc"]), (
+        f"{name}: bf16 bestc equals the f32 kernel's (storage flag ignored)")
+    return {"case": name, "max_abs_err": float(np.abs(k16["bestc"] - p16["bestc"]).max())}
 
 
 def check_floats_where_argmin_agrees(got, ref, D, rtol=1e-4, atol=1e-3) -> dict:
@@ -111,7 +265,9 @@ def check_floats_where_argmin_agrees(got, ref, D, rtol=1e-4, atol=1e-3) -> dict:
                     ("ubest", same)):
         np.testing.assert_allclose(got[k][mask], ref[k][mask], rtol=rtol, atol=atol,
                                    err_msg=k)
-        errs[k] = float(np.abs(got[k][mask] - ref[k][mask]).max(initial=0.0))
+        a, b = got[k][mask], ref[k][mask]
+        # equal entries (inf included, where D <= 3 leaves no ubest) count 0
+        errs[k] = float(np.where(a == b, 0.0, np.abs(a - b)).max(initial=0.0))
     return errs
 
 
@@ -149,8 +305,9 @@ def main() -> int:
     if Path(aswstereomatch_torch.__file__).resolve().parent.parent != HERE:
         fail(f"aswstereomatch_torch loaded from {aswstereomatch_torch.__file__}, "
              f"not from the checkout at {HERE}")
+    from aswstereomatch_torch.config import SEP_CONTRACT
     from aswstereomatch_torch.models import pipeline
-    from aswstereomatch_torch.ops.cuda import asw_kernel, build
+    from aswstereomatch_torch.ops.cuda import asw_kernel, asw_sep_kernel, build, common
     from aswstereomatch_torch.utils import evaluate, synthetic
 
     # ---- 1. device ------------------------------------------------------
@@ -178,105 +335,170 @@ def main() -> int:
     print(f"build: {build_s:.1f} s; " + " | ".join(ptxas), flush=True)
 
     # ---- 3. kernel vs plain, small geometries ---------------------------
-    small = []
-    for case in SMALL_CASES:
-        try:
-            small.append(check_small(*case, device=dev))
-        except AssertionError as e:
-            fail(f"small {case[0]}: {e}")
-    print("small: " + ", ".join(f"{s['case']} ok" for s in small), flush=True)
+    for label, cases in (("small K1", SMALL_CASES), ("small K2", SEP_SMALL_CASES)):
+        small = []
+        for case in cases:
+            try:
+                small.append(check_small(*case, device=dev))
+            except AssertionError as e:
+                fail(f"{label} {case[0]}: {e}")
+        if label == "small K2":
+            for name, sym in SEP_BF16_CASES:
+                try:
+                    small.append(check_sep_bf16(name, sym, dev))
+                except AssertionError as e:
+                    fail(f"{label} {name}: {e}")
+        print(f"{label}: " + ", ".join(f"{s['case']} ok" for s in small), flush=True)
 
-    # ---- 4. kernel vs plain, full Middlebury width ----------------------
+    # ---- 4. kernel vs plain at full width -------------------------------
+    def full_width(label, cfg, pair):
+        kernel = _kernel_module(cfg)
+        l = torch.from_numpy(pair["left"]).to(dev)
+        r = torch.from_numpy(pair["right"]).to(dev)
+        got = {k: v.cpu().numpy() for k, v in kernel.wta_outputs(l, r, cfg).items()}
+        ref = {k: v.cpu().numpy() for k, v in kernel.wta_outputs_reference(l, r, cfg).items()}
+        agree = {}
+        for k in ("bestd", "rbestd"):
+            agree[k] = _argmin_agreement(got[k], ref[k])
+            if not (agree[k][0] > 0.99 and agree[k][1] < 0.005):
+                fail(f"full {label} {k}: agreement {agree[k][0]:.6f}, "
+                     f"|dd|>2 on {agree[k][1]:.6f}")
+        try:  # f32 sums of many taps in another order: the box-kernel bar
+            errs = check_floats_where_argmin_agrees(got, ref, cfg.max_disparity)
+        except AssertionError as e:
+            fail(f"full {label}: {e}")
+        print(f"full: {label} bestd agree {agree['bestd'][0]:.6f} "
+              f"(|dd|>2 {agree['bestd'][1]:.6f}), rbestd agree {agree['rbestd'][0]:.6f} "
+              f"(|dd|>2 {agree['rbestd'][1]:.6f}), max_abs_err where bestd agrees "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+        return errs["bestc"]
+
     cfg_m = aswstereomatch_torch.get_preset("middlebury_asw_full")
     D_m = cfg_m.max_disparity
     pm = synthetic.make_pair(height=375, width=450, max_disparity=D_m, seed=11)
-    lm = torch.from_numpy(pm["left"]).to(dev)
-    rm = torch.from_numpy(pm["right"]).to(dev)
-    got = {k: v.cpu().numpy() for k, v in asw_kernel.wta_outputs(lm, rm, cfg_m).items()}
-    ref = {k: v.cpu().numpy()
-           for k, v in asw_kernel.wta_outputs_reference(lm, rm, cfg_m).items()}
-    full = {}
-    for k in ("bestd", "rbestd"):
-        close, gross = _argmin_agreement(got[k], ref[k])
-        full[k] = (close, gross)
-        if not (close > 0.99 and gross < 0.005):
-            fail(f"full {k}: agreement {close:.6f}, |dd|>2 on {gross:.6f}")
-    try:  # f32 sums of 1089 taps in another order: the box-kernel bar
-        errs = check_floats_where_argmin_agrees(got, ref, D_m)
-    except AssertionError as e:
-        fail(f"full: {e}")
-    max_abs_err = errs["bestc"]
-    print(f"full: 450x375 D=64 r=16 bestd agree {full['bestd'][0]:.6f} "
-          f"(|dd|>2 {full['bestd'][1]:.6f}), rbestd agree {full['rbestd'][0]:.6f} "
-          f"(|dd|>2 {full['rbestd'][1]:.6f}), max_abs_err where bestd agrees "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+    max_abs_err = full_width("K1 450x375 D=64 r=16", cfg_m, pm)
+    cfg_sep = aswstereomatch_torch.get_preset("kitti_sep")
+    cfg_seplo = aswstereomatch_torch.get_preset("kitti_seplo")
+    pk = synthetic.make_pair(height=375, width=1242, max_disparity=128, seed=31)
+    sep_err = full_width("K2 kitti_sep 1242x375 D=128 r=16", cfg_sep, pk)
+    full_width("K2 kitti_seplo 1242x375 D=128 r=16", cfg_seplo, pk)
 
-    # ---- 5. main path: a matcher serving requests -----------------------
+    # ---- 5. main path: matchers serving requests ------------------------
+    u8 = lambda a: a.astype(np.uint8)  # noqa: E731  (lossless: 8-bit grid)
+
+    def check_map(label, d, p, D, max_bad2=None):
+        rep = evaluate.bad_report(d, p["gt"], valid=~p["occluded"])
+        if not (d.shape == p["gt"].shape and np.isfinite(d).all() and d.min() >= 0
+                and d.max() < D and rep["density"] == 1.0
+                and (max_bad2 is None or rep["bad_2"] < max_bad2)):
+            fail(f"serve: bad {label} map: min {d.min()}, max {d.max()}, {rep}")
+        return rep["bad_2"]
+
+    def serve(matcher, pairs, batch_of):
+        """Single calls for each pair, then one batch of the first
+        `batch_of`; numpy maps."""
+        disps = [matcher(u8(p["left"]), u8(p["right"])).cpu().numpy() for p in pairs]
+        batch = None
+        if batch_of:
+            batch = matcher.batch(np.stack([u8(p["left"]) for p in pairs[:batch_of]]),
+                                  np.stack([u8(p["right"]) for p in pairs[:batch_of]]))
+            batch = batch.cpu().numpy()
+            for i in range(batch_of):
+                if not np.array_equal(batch[i], disps[i]):
+                    fail(f"serve: batch[{i}] differs from the single call")
+        return disps
+
     matcher = aswstereomatch_torch.StereoMatcher.from_preset("middlebury_asw_full")
-    if pipeline._resolve_backend(matcher.cfg, matcher.device) != "cuda":
-        fail("serve: middlebury_asw_full does not resolve to the cuda backend")
+    kitti_cfg = aswstereomatch_torch.get_preset("kitti_tiled")
+    kitti = aswstereomatch_torch.StereoMatcher(kitti_cfg)
+    sep = aswstereomatch_torch.StereoMatcher.from_preset("kitti_sep")
+    seplo = aswstereomatch_torch.StereoMatcher.from_preset("kitti_seplo")
+    for m in (matcher, kitti, sep, seplo):
+        if pipeline._resolve_backend(m.cfg, m.device) != "cuda":
+            fail(f"serve: {m.cfg} does not resolve to the cuda backend")
     reqs = [synthetic.make_pair(height=375, width=450, max_disparity=D_m, seed=s)
             for s in (21, 22, 23)]
-    kitti_cfg = aswstereomatch_torch.get_preset("kitti_tiled")
-    pk = synthetic.make_pair(height=375, width=1242, max_disparity=128, seed=31)
-    kitti = aswstereomatch_torch.StereoMatcher(kitti_cfg)
-    u8 = lambda a: a.astype(np.uint8)  # noqa: E731  (lossless: 8-bit grid)
+    reqs_k = [pk] + [synthetic.make_pair(height=375, width=1242, max_disparity=128, seed=s)
+                     for s in (32, 33)]
     torch.cuda.synchronize()
 
-    asw_kernel.launches = 0
-    disps = [matcher(u8(p["left"]), u8(p["right"])).cpu().numpy() for p in reqs]
-    batch = matcher.batch(np.stack([u8(p["left"]) for p in reqs[:2]]),
-                          np.stack([u8(p["right"]) for p in reqs[:2]])).cpu().numpy()
-    dk = kitti(u8(pk["left"]), u8(pk["right"])).cpu().numpy()
+    # K1's path: middlebury_asw_full requests, then one kitti_tiled pair
+    asw_kernel.launches = asw_sep_kernel.launches = 0
+    disps = serve(matcher, reqs, 2)
+    dk = serve(kitti, [pk], 0)[0]
     torch.cuda.synchronize()
     main_launches = asw_kernel.launches
-    if main_launches != 6:
-        fail(f"serve: the fused kernel launched {main_launches} times, expected 6")
+    if (main_launches, asw_sep_kernel.launches) != (6, 0):
+        fail(f"serve: K1's path launched K1 {main_launches} times and K2 "
+             f"{asw_sep_kernel.launches} times, expected 6 and 0")
+    bads = [check_map("450x375", d, p, D_m, 0.05) for p, d in zip(reqs, disps)]
+    bad_k = check_map("kitti_tiled", dk, pk, 128)
+    print(f"serve K1: 3 requests 450x375 bad_2 {[round(b, 5) for b in bads]}, batch of 2 "
+          f"== singles, kitti_tiled 1242x375 D=128 bad_2 {bad_k:.5f} density 1.0; "
+          f"K1 launches {main_launches}", flush=True)
 
-    bads = []
-    for p, d in zip(reqs, disps):
-        rep = evaluate.bad_report(d, p["gt"], valid=~p["occluded"])
-        if not (np.isfinite(d).all() and d.min() >= 0 and d.max() < D_m
-                and rep["density"] == 1.0 and rep["bad_2"] < 0.05):
-            fail(f"serve: bad map: min {d.min()}, max {d.max()}, {rep}")
-        bads.append(rep["bad_2"])
-    for i in range(2):
-        if not np.array_equal(batch[i], disps[i]):
-            fail(f"serve: batch[{i}] differs from the single call")
-    rep_k = evaluate.bad_report(dk, pk["gt"], valid=~pk["occluded"])
-    if not (dk.shape == (375, 1242) and np.isfinite(dk).all() and dk.min() >= 0
-            and dk.max() < 128 and rep_k["density"] == 1.0):
-        fail(f"serve: bad KITTI map: {rep_k}")
-    print(f"serve: 3 requests 450x375 bad_2 {[round(b, 5) for b in bads]}, batch of 2 "
-          f"== singles, KITTI 1242x375 D=128 bad_2 {rep_k['bad_2']:.5f} "
-          f"density {rep_k['density']}; kernel launches {main_launches}", flush=True)
+    # K2's path: kitti_sep requests and a batch of two, one kitti_seplo pair
+    asw_kernel.launches = asw_sep_kernel.launches = 0
+    ds = serve(sep, reqs_k, 2)
+    dlo = serve(seplo, [pk], 0)[0]
+    torch.cuda.synchronize()
+    sep_launches = asw_sep_kernel.launches
+    if (sep_launches, asw_kernel.launches) != (6, 0):
+        fail(f"serve: K2's path launched K2 {sep_launches} times and K1 "
+             f"{asw_kernel.launches} times, expected 6 and 0")
+    bads_s = [check_map("kitti_sep", d, p, 128, 0.05) for p, d in zip(reqs_k, ds)]
+    bad_lo = check_map("kitti_seplo", dlo, pk, 128, 0.05)
+    delta = evaluate.bad_delta_between(ds[0], dk, 2.0, ~pk["occluded"])
+    if not delta <= SEP_CONTRACT["delta_bad2_max"]:
+        fail(f"serve: kitti_sep drifted from exact kitti_tiled: bad-2.0 delta {delta}")
+    print(f"serve K2: 3 requests kitti_sep 1242x375 bad_2 {[round(b, 5) for b in bads_s]}, "
+          f"batch of 2 == singles, kitti_seplo bad_2 {bad_lo:.5f}, density 1.0; "
+          f"kitti_sep vs exact kitti_tiled bad-2.0 delta {delta:.5f} "
+          f"(<= {SEP_CONTRACT['delta_bad2_max']}); K2 launches {sep_launches}", flush=True)
 
     # ---- 6. times -------------------------------------------------------
     times = {}
-    for geo, cfg, p, m, reps in (("450x375", cfg_m, reqs[0], matcher, 5),
-                                  ("1242x375", kitti_cfg, pk, kitti, 3)):
+    for geo, cfg, p, m, reps in (("K1 450x375", cfg_m, reqs[0], matcher, 5),
+                                  ("K1 1242x375", kitti_cfg, pk, kitti, 3),
+                                  ("K2 kitti_sep 1242x375", cfg_sep, pk, sep, 5),
+                                  ("K2 kitti_seplo 1242x375", cfg_seplo, pk, seplo, 5)):
+        kernel = _kernel_module(cfg)
         l = torch.from_numpy(p["left"]).to(dev)
         r = torch.from_numpy(p["right"]).to(dev)
         lu, ru = u8(p["left"]), u8(p["right"])
-        times[geo] = {
-            "kernel_ms": _median_ms(lambda: asw_kernel.wta_outputs(l, r, cfg), reps),
-            "plain_ms": _median_ms(lambda: asw_kernel.wta_outputs_reference(l, r, cfg), reps),
+        H, W = p["gt"].shape
+        bound_ms, bound_by = (k2_bound if cfg.asw_separable else k1_bound)(H, W, cfg)
+        ls, rs = common.stacks(l, r, cfg)
+        times[geo] = {  # ms / plain_ms: the wrappers with the stacks built inside
+            "ms": _median_ms(lambda: kernel.wta_outputs(l, r, cfg), reps),
+            "plain_ms": _median_ms(lambda: kernel.wta_outputs_reference(l, r, cfg), reps),
+            "from_stacks_ms": _median_ms(
+                lambda: kernel.wta_outputs_from_stacks(ls, rs, cfg), reps),
+            "plain_from_stacks_ms": _median_ms(
+                lambda: kernel.reference_from_stacks(ls, rs, cfg), reps),
             "e2e_ms": _median_ms(lambda: m(lu, ru), reps),
+            "bound_ms": bound_ms, "bound_by": bound_by,
         }
         t = times[geo]
-        print(f"times {geo} D={cfg.max_disparity} on {card}: kernel {t['kernel_ms']:.3f} ms, "
-              f"plain {t['plain_ms']:.3f} ms, end-to-end {t['e2e_ms']:.3f} ms/pair", flush=True)
+        print(f"times {geo} D={cfg.max_disparity} on {card}: kernel {t['ms']:.3f} ms with "
+              f"the channel stacks, {t['from_stacks_ms']:.3f} ms over pre-built stacks "
+              f"(bound {bound_ms:.3f} ms by {bound_by}); plain {t['plain_ms']:.3f} / "
+              f"{t['plain_from_stacks_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair",
+              flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "asw_wta",
-        "route": "cuda",
-        "source": "aswstereomatch_torch/ops/cuda/asw_kernel.cu",
-        "replaces": "aswstereomatch_tpu/ops/pallas/asw_kernel.py:166",
-        "launches": main_launches,
-        "max_abs_err": max_abs_err,
-        "ms": times["450x375"]["kernel_ms"],
-        "plain_ms": times["450x375"]["plain_ms"],
-    }]}), flush=True)
+    def row(name, source, replaces, launches, err, geo):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, **times[geo],
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        row("asw_wta", "aswstereomatch_torch/ops/cuda/asw_kernel.cu",
+            "aswstereomatch_tpu/ops/pallas/asw_kernel.py:166", main_launches,
+            max_abs_err, "K1 450x375"),
+        row("asw_sep_wta", "aswstereomatch_torch/ops/cuda/asw_sep_kernel.cu",
+            "aswstereomatch_tpu/ops/pallas/asw_sep_dlanes.py:192", sep_launches,
+            sep_err, "K2 kitti_sep 1242x375"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

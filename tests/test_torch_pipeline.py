@@ -29,6 +29,7 @@ CFG_AD = RefConfig(max_disparity=12, cost="ad", aggregation="box", window_radius
 CFG_TAD = RefConfig(max_disparity=12, cost="tad_grad", aggregation="asw",
                     window_radius=4, gamma_color=14.0, gamma_spatial=9.0)
 # test_oracle_parity.py's pipeline configs, minus the separable mode
+# (tests/test_torch_sep_pipeline.py)
 PIPELINE_CFGS = [
     CFG_AD,
     CFG_TAD,
@@ -122,14 +123,16 @@ def test_resolve_backend():
     for overrides in (dict(asw_symmetric=False), dict(aggregation="box"),
                       dict(kernel_layout="dlanes")):
         assert pipeline._resolve_backend(cfg.replace(**overrides), cuda) == "cuda"
-    for name in ("kitti_sep", "kitti_seplo", "kitti_sgm"):
-        assert pipeline._resolve_backend(asm.get_preset(name), cuda) == "eager"
+    # the separable presets have their own kernel (tests/test_torch_sep_pipeline.py)
+    for name in ("kitti_sep", "kitti_seplo"):
+        assert pipeline._resolve_backend(asm.get_preset(name), cuda) == "cuda"
+    assert pipeline._resolve_backend(asm.get_preset("kitti_sgm"), cuda) == "eager"
     assert pipeline._resolve_backend(cfg.replace(aggregation="none"), cuda) == "eager"
     assert pipeline._resolve_backend(cfg.replace(backend="eager"), cuda) == "eager"
     with pytest.raises(ValueError, match="CUDA device"):
         pipeline._resolve_backend(cfg.replace(backend="cuda"), cpu)
     with pytest.raises(ValueError, match="no kernel"):
-        pipeline._resolve_backend(asm.get_preset("kitti_sep").replace(backend="cuda"), cuda)
+        pipeline._resolve_backend(asm.get_preset("kitti_sgm").replace(backend="cuda"), cuda)
 
 
 def test_cuda_backend_on_cpu_tensor_raises(small_pair):

@@ -170,8 +170,14 @@ def test_not_ported_aggregations_raise(tiny_pair):
     l, r = T(tiny_pair["left"]), T(tiny_pair["right"])
     with pytest.raises(NotImplementedError):
         aggregate.aggregated_volume(l, r, port(CFG_TAD.replace(aggregation="sgm")))
-    with pytest.raises(NotImplementedError):
-        aggregate.aggregated_volume(l, r, port(CFG_TAD.replace(asw_separable=True)))
+    # separable ASW is ported: the volume of its own function
+    # (tests/test_torch_sep_aggregate.py holds it to the reference)
+    cfg = port(CFG_TAD.replace(asw_separable=True))
+    vol = aggregate.aggregated_volume(l, r, cfg)
+    assert vol.shape == tiny_pair["left"].shape[:2] + (cfg.max_disparity,)
+    assert torch.isfinite(vol).all()
+    exact = aggregate.aggregated_volume(l, r, cfg.replace(asw_separable=False))
+    assert not torch.equal(vol, exact)
 
 
 # ---- WTA ---------------------------------------------------------------------
