@@ -1,9 +1,9 @@
 """aswstereomatch_torch — the stereo-matching engine in PyTorch and CUDA.
 
 The port of ``aswstereomatch_tpu`` (the JAX/Pallas reference, which stays
-beside it) to one NVIDIA H100: exact Yoon-Kweon adaptive-support-weight
-matching through a hand-written fused CUDA kernel (ops/cuda), with plain
-PyTorch stages around it.  Imports torch and numpy, never jax.
+beside it) to one NVIDIA H100: Yoon-Kweon adaptive-support-weight
+matching (exact or separable) and box matching through hand-written CUDA
+kernels (ops/cuda), with plain PyTorch stages around them.  Imports torch and numpy, never jax.
 """
 
 import torch

@@ -105,9 +105,10 @@ class StereoConfig:
     tile_axis: str = "y"               # what "tile" shards: "y" | "x" | "d"
     # ---- backend selection --------------------------------------------------
     backend: str = "auto"              # "auto" | "eager" | "cuda"
-    kernel_layout: str = "auto"        # "auto" | "xlanes" | "dlanes"; one
-                                       # exact kernel serves every layout;
-                                       # separable + "xlanes" runs eager
+    kernel_layout: str = "auto"        # "auto" | "xlanes" | "dlanes"; picks
+                                       # the kernel as the reference does
+                                       # (pipeline.kernel_for); separable +
+                                       # "xlanes" runs eager
 
     def __post_init__(self):
         if self.cost not in ("ad", "tad_grad"):

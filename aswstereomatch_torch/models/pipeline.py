@@ -10,8 +10,15 @@ Backends:
              kernels.  It stores the volume in float32 whatever
              ``volume_dtype`` says (and warns when that says bfloat16).
   - "cuda":  a hand-written CUDA kernel (ops/cuda) for cost + aggregation +
-             WTA, the plain post-processing on top: ``asw_kernel`` (fused
-             exact ASW or box) or, for ``asw_separable``, ``asw_sep_kernel``.
+             WTA, the plain post-processing on top.  ``kernel_for`` picks
+             it from the config alone, as the reference's ``_kernel_wta``
+             picks its Pallas kernel: ``asw_sep_kernel`` for
+             ``asw_separable``; ``asw_sym_dlanes_kernel`` for symmetric ASW
+             pinned to ``kernel_layout="dlanes"``; ``asw_dlanes_kernel``
+             for left-only ASW, box at D > 64 and either pinned to
+             "dlanes"; ``asw_kernel`` (fused exact ASW or box) for the
+             rest.  "dlanes" on a geometry no d-lanes kernel supports
+             raises.
   - "auto":  "cuda" for CUDA tensors when a kernel serves the config,
              "eager" otherwise.
 
@@ -28,7 +35,7 @@ import torch
 
 from ..config import StereoConfig, get_preset
 from ..ops import aggregate, postprocess, preprocess, wta
-from ..ops.cuda import asw_kernel, asw_sep_kernel
+from ..ops.cuda import asw_dlanes_kernel, asw_kernel, asw_sep_kernel, asw_sym_dlanes_kernel
 
 aggregated_volume = aggregate.aggregated_volume
 
@@ -74,33 +81,52 @@ def _postprocess_from_volume(
     return disp
 
 
-def _resolve_backend(cfg: StereoConfig, device: torch.device) -> str:
-    """Which backend runs ``cfg`` on tensors on ``device``.
+def kernel_for(cfg: StereoConfig):
+    """The kernel module that serves ``cfg`` on the card, or None when no
+    kernel does (the eager path serves it).  Raises where the reference
+    raises: ``kernel_layout="dlanes"`` on a geometry its d-lanes kernel does
+    not support.
 
-    Separable configs go to ``asw_sep_kernel`` when it routes them
-    (``asw_sep_kernel.routed``: the reference's kernel_layout rules), every
-    other exact ASW or box config to the one fused kernel (left-only ASW
-    included; the reference's d-lanes kernels K3/K4 are not ported yet),
-    with no work threshold for small box problems.  A bfloat16
+    The reference's choice, in its order: its ``_resolve_backend`` keeps
+    separable configs its separable kernel routes and exact ``asw``/``box``
+    configs (``asw_kernel.supports``), then its ``_kernel_wta`` tries the
+    symmetric d-lanes kernel, the d-lanes kernel and the x-lanes kernel.
+    The reference's work threshold for small box problems is not kept (it
+    was measured on a TPU)."""
+    if cfg.asw_separable:
+        return asw_sep_kernel if asw_sep_kernel.routed(cfg) else None
+    if not asw_kernel.supports(cfg):
+        return None
+    if asw_sym_dlanes_kernel.routed(cfg):
+        return asw_sym_dlanes_kernel
+    if asw_dlanes_kernel.routed(cfg):
+        return asw_dlanes_kernel
+    return asw_kernel
+
+
+def _resolve_backend(cfg: StereoConfig, device: torch.device) -> str:
+    """Which backend runs ``cfg`` on tensors on ``device``: "cuda" when the
+    tensors are on the card and ``kernel_for`` names a kernel (which raises
+    for an unsupported "dlanes" pin), "eager" otherwise.  As in the
+    reference, a separable config's routing is checked on every device, an
+    exact one's only where a kernel would run.  A bfloat16
     ``volume_dtype`` resolved to the eager path warns: that path stores the
     volume in float32."""
     if cfg.backend == "eager":
         return _eager(cfg)
-    supported = (asw_sep_kernel.routed(cfg) if cfg.asw_separable
-                 else asw_kernel.supports(cfg))
     on_card = torch.device(device).type == "cuda"
-    if cfg.backend == "cuda":
-        if not on_card:
-            raise ValueError("backend='cuda' needs tensors on a CUDA device")
-        if not supported:
-            raise ValueError(
-                "backend='cuda' has no kernel for this config (the fused "
-                "kernel serves exact 'asw' and 'box' aggregation, the "
-                "separable kernel separable ASW with D in [2, 128], r <= 32 "
-                "and kernel_layout != 'xlanes')"
-            )
+    if cfg.backend == "cuda" and not on_card:
+        raise ValueError("backend='cuda' needs tensors on a CUDA device")
+    kernel = kernel_for(cfg) if on_card or cfg.asw_separable else None
+    if on_card and kernel is not None:
         return "cuda"
-    return "cuda" if on_card and supported else _eager(cfg)
+    if cfg.backend == "cuda":
+        raise ValueError(
+            "backend='cuda' has no kernel for this config (the kernels serve "
+            "exact 'asw' and 'box' aggregation, and separable ASW with D in "
+            "[2, 128], r <= 32 and kernel_layout != 'xlanes')"
+        )
+    return _eager(cfg)
 
 
 def _eager(cfg: StereoConfig) -> str:
@@ -118,18 +144,19 @@ def _eager(cfg: StereoConfig) -> str:
 
 
 def _kernel_wta(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> dict:
-    """Kernel WTA outputs.  A separable config goes to the separable kernel
-    or raises: the exact kernel must never compute a separable config's
-    window."""
-    if cfg.asw_separable:
-        if asw_sep_kernel.routed(cfg):
-            return asw_sep_kernel.wta_outputs(left, right, cfg)
-        raise ValueError(
-            "separable ASW has no xlanes kernel and requires "
-            "max_disparity in [2, 128] and window_size <= 65 "
-            "(kernel_layout 'auto'/'dlanes'); use backend='auto'/'eager'"
-        )
-    return asw_kernel.wta_outputs(left, right, cfg)
+    """Kernel WTA outputs from the kernel ``kernel_for`` picks.  A config no
+    kernel serves raises: in particular the exact kernels must never compute
+    a separable config's window."""
+    kernel = kernel_for(cfg)
+    if kernel is None:
+        if cfg.asw_separable:
+            raise ValueError(
+                "separable ASW has no xlanes kernel and requires "
+                "max_disparity in [2, 128] and window_size <= 65 "
+                "(kernel_layout 'auto'/'dlanes'); use backend='auto'/'eager'"
+            )
+        raise ValueError("no kernel serves this config; use backend='auto'/'eager'")
+    return kernel.wta_outputs(left, right, cfg)
 
 
 def _disp_pre_from_wta(outs: dict, cfg: StereoConfig) -> torch.Tensor:

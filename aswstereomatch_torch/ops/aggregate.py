@@ -19,7 +19,8 @@ aggregators, under the pinned virtual padded-plane border semantics
 These materialize weight planes ((H, W, K^2) for the exact window, about
 2 GB each at KITTI geometry, r=16; (H, W, K) for the separable passes) and
 the (H, W, D) output volume: they are the readable references the CUDA
-kernels (ops/cuda/asw_kernel, ops/cuda/asw_sep_kernel) are tested against,
+kernels (ops/cuda/asw_kernel, asw_sep_kernel, asw_dlanes_kernel,
+asw_sym_dlanes_kernel) are tested against,
 not the main path on the card.  SGM is not ported yet.
 """
 

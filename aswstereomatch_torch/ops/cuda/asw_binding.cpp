@@ -1,10 +1,11 @@
 // PyTorch binding of the port's CUDA kernels as the operators
-// torch.ops.asw_torch.asw_wta (fused exact ASW, asw_kernel.cu) and
-// torch.ops.asw_torch.asw_sep_wta (separable ASW, asw_sep_kernel.cu).  Each
-// checks its inputs, allocates the outputs and scratch and launches on the
-// current CUDA stream; a launch error raises.  They have only a CUDA
-// implementation: CPU tensors take the plain PyTorch versions in
-// ops/cuda/asw_kernel.py and ops/cuda/asw_sep_kernel.py before they get here.
+// torch.ops.asw_torch.asw_wta (fused exact ASW, asw_kernel.cu),
+// asw_sep_wta (separable ASW, asw_sep_kernel.cu), asw_dlanes_wta (left-only
+// ASW or box, asw_dlanes_kernel.cu) and asw_sym_dlanes_wta (symmetric ASW,
+// asw_sym_dlanes_kernel.cu).  Each checks its inputs, allocates the outputs
+// and scratch and launches on the current CUDA stream; a launch error
+// raises.  They have only a CUDA implementation: CPU tensors take the plain
+// PyTorch versions in the ops/cuda/*.py wrappers before they get here.
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -14,6 +15,7 @@
 #include <torch/library.h>
 
 #include <tuple>
+#include <utility>
 
 extern "C" int asw_wta_launch(
     const float* ls, const float* rs, const float* sw, int H, int W, int r,
@@ -28,9 +30,24 @@ extern "C" int asw_sep_wta_launch(
     float* whl, float* wvr, float* whr, int* bestd, float* bestc, float* cm,
     float* cp, float* ubest, unsigned long long* rpack, int* rbestd,
     void* stream);
+extern "C" int asw_dlanes_wta_launch(
+    const float* ls, const float* rs, const float* sw, int H, int W, int r,
+    int D, int box, int cost_ad, float alpha, float one_minus_alpha,
+    float tau_color, float tau_grad, float inv_gamma_color, float inv_n,
+    int* bestd, float* bestc, float* cm, float* cp, float* ubest,
+    unsigned long long* rpack, int* rbestd, void* stream);
+extern "C" int asw_sym_dlanes_wta_launch(
+    const float* ls, const float* rs, const float* sw, int H, int W, int r,
+    int D, int cost_ad, float alpha, float one_minus_alpha, float tau_color,
+    float tau_grad, float inv_gamma_color, int* bestd, float* bestc, float* cm,
+    float* cp, float* ubest, unsigned long long* rpack, int* rbestd,
+    void* stream);
 extern "C" const char* asw_error_string(int err);
 
 namespace {
+
+using Planes =
+    std::tuple<at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor>;
 
 void check_input(const at::Tensor& t, const char* name, int64_t dims) {
   TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
@@ -39,16 +56,15 @@ void check_input(const at::Tensor& t, const char* name, int64_t dims) {
   TORCH_CHECK(t.dim() == dims, name, " must have ", dims, " dimensions");
 }
 
-std::tuple<at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor>
-asw_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& sw,
-        int64_t r, int64_t D, int64_t mode, int64_t cost_ad, double alpha,
-        double one_minus_alpha, double tau_color, double tau_grad,
-        double inv_gamma_color) {
+// Checks the stacks ls (7, H, W + 2r) and rs (7, H, W + 2r + D - 1) and the
+// constant table (table_dims dimensions of K each); returns (H, W).
+std::pair<int64_t, int64_t> check_stacks(const at::Tensor& ls, const at::Tensor& rs,
+                                         const at::Tensor& table,
+                                         int64_t table_dims, int64_t r, int64_t D) {
   check_input(ls, "ls", 3);
   check_input(rs, "rs", 3);
-  check_input(sw, "sw", 2);
+  check_input(table, "the constant table", table_dims);
   TORCH_CHECK(r >= 0 && D >= 1, "need r >= 0 and D >= 1");
-  TORCH_CHECK(mode >= 0 && mode <= 2, "mode must be 0, 1 or 2");
   const int64_t H = ls.size(1);
   const int64_t W = ls.size(2) - 2 * r;
   const int64_t K = 2 * r + 1;
@@ -56,61 +72,73 @@ asw_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& sw,
   TORCH_CHECK(H >= 1 && W >= 1, "empty image");
   TORCH_CHECK(rs.size(1) == H && rs.size(2) == W + 2 * r + D - 1,
               "rs must be (7, H, W + 2r + D - 1)");
-  TORCH_CHECK(sw.size(0) == K && sw.size(1) == K, "sw must be (K, K)");
-  TORCH_CHECK(rs.device() == ls.device() && sw.device() == ls.device(),
+  for (int64_t i = 0; i < table_dims; ++i)
+    TORCH_CHECK(table.size(i) == K, "the constant table must be K along each axis");
+  TORCH_CHECK(rs.device() == ls.device() && table.device() == ls.device(),
               "inputs must share one device");
+  return {H, W};
+}
+
+// The six (H, W) output planes, and the right view's packed words, filled
+// with all-ones: larger than every packed (cost, d) candidate.
+struct Outputs {
+  at::Tensor bestd, bestc, cm, cp, ubest, rbestd, rpack;
+
+  Outputs(const at::Tensor& like, int64_t H, int64_t W) {
+    const auto f32 = like.options();
+    const auto i32 = like.options().dtype(at::kInt);
+    bestd = at::empty({H, W}, i32);
+    bestc = at::empty({H, W}, f32);
+    cm = at::empty({H, W}, f32);
+    cp = at::empty({H, W}, f32);
+    ubest = at::empty({H, W}, f32);
+    rbestd = at::empty({H, W}, i32);
+    rpack = at::full({H, W}, -1, like.options().dtype(at::kLong));
+  }
+
+  unsigned long long* rpack_ptr() {
+    return reinterpret_cast<unsigned long long*>(rpack.data_ptr<int64_t>());
+  }
+
+  Planes planes() const { return {bestd, bestc, cm, cp, ubest, rbestd}; }
+};
+
+void* stream_of(const at::Tensor& t) {
+  return c10::cuda::getCurrentCUDAStream(t.get_device()).stream();
+}
+
+Planes asw_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& sw,
+               int64_t r, int64_t D, int64_t mode, int64_t cost_ad, double alpha,
+               double one_minus_alpha, double tau_color, double tau_grad,
+               double inv_gamma_color) {
+  const auto [H, W] = check_stacks(ls, rs, sw, 2, r, D);
+  TORCH_CHECK(mode >= 0 && mode <= 2, "mode must be 0, 1 or 2");
   TORCH_CHECK(H * W < (int64_t)1 << 31, "image too large");
-
+  const int64_t K = 2 * r + 1;
   c10::cuda::CUDAGuard guard(ls.device());
-  const auto f32 = ls.options();
-  const auto i32 = ls.options().dtype(at::kInt);
-  at::Tensor bestd = at::empty({H, W}, i32);
-  at::Tensor bestc = at::empty({H, W}, f32);
-  at::Tensor cm = at::empty({H, W}, f32);
-  at::Tensor cp = at::empty({H, W}, f32);
-  at::Tensor ubest = at::empty({H, W}, f32);
-  at::Tensor rbestd = at::empty({H, W}, i32);
-  // All-ones words: larger than every packed (cost, d) candidate.
-  at::Tensor rpack = at::full({H, W}, -1, ls.options().dtype(at::kLong));
-
+  Outputs o(ls, H, W);
   const int err = asw_wta_launch(
       ls.data_ptr<float>(), rs.data_ptr<float>(), sw.data_ptr<float>(),
       (int)H, (int)W, (int)r, (int)D, (int)mode, (int)cost_ad, (float)alpha,
       (float)one_minus_alpha, (float)tau_color, (float)tau_grad,
       (float)inv_gamma_color, (float)(1.0 / (double)(K * K)),
-      bestd.data_ptr<int>(), bestc.data_ptr<float>(), cm.data_ptr<float>(),
-      cp.data_ptr<float>(), ubest.data_ptr<float>(),
-      reinterpret_cast<unsigned long long*>(rpack.data_ptr<int64_t>()),
-      rbestd.data_ptr<int>(),
-      c10::cuda::getCurrentCUDAStream(ls.get_device()).stream());
+      o.bestd.data_ptr<int>(), o.bestc.data_ptr<float>(), o.cm.data_ptr<float>(),
+      o.cp.data_ptr<float>(), o.ubest.data_ptr<float>(), o.rpack_ptr(),
+      o.rbestd.data_ptr<int>(), stream_of(ls));
   TORCH_CHECK(err == 0, "asw_wta launch failed: ", asw_error_string(err));
-  return {bestd, bestc, cm, cp, ubest, rbestd};
+  return o.planes();
 }
 
-std::tuple<at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor, at::Tensor>
-asw_sep_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& aw,
-            int64_t r, int64_t D, int64_t sym, int64_t cost_ad, int64_t bf16,
-            double alpha, double one_minus_alpha, double tau_color,
-            double tau_grad, double inv_gamma_color) {
-  check_input(ls, "ls", 3);
-  check_input(rs, "rs", 3);
-  check_input(aw, "aw", 1);
-  TORCH_CHECK(r >= 0 && r <= 32 && D >= 1, "need 0 <= r <= 32 and D >= 1");
-  const int64_t H = ls.size(1);
-  const int64_t W = ls.size(2) - 2 * r;
+Planes asw_sep_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& aw,
+                   int64_t r, int64_t D, int64_t sym, int64_t cost_ad, int64_t bf16,
+                   double alpha, double one_minus_alpha, double tau_color,
+                   double tau_grad, double inv_gamma_color) {
+  const auto [H, W] = check_stacks(ls, rs, aw, 1, r, D);
+  TORCH_CHECK(r <= 32, "need r <= 32");
   const int64_t K = 2 * r + 1;
-  TORCH_CHECK(ls.size(0) == 7 && rs.size(0) == 7, "stacks need 7 channels");
-  TORCH_CHECK(H >= 1 && W >= 1, "empty image");
-  TORCH_CHECK(rs.size(1) == H && rs.size(2) == W + 2 * r + D - 1,
-              "rs must be (7, H, W + 2r + D - 1)");
-  TORCH_CHECK(aw.size(0) == K, "aw must be (K,)");
-  TORCH_CHECK(rs.device() == ls.device() && aw.device() == ls.device(),
-              "inputs must share one device");
   TORCH_CHECK(H * K * (W + 2 * r + D - 1) < (int64_t)1 << 31, "image too large");
-
   c10::cuda::CUDAGuard guard(ls.device());
   const auto f32 = ls.options();
-  const auto i32 = ls.options().dtype(at::kInt);
   // 1-D weight planes (scratch), (H, K, columns).
   at::Tensor wvl = at::empty({H, K, W + 2 * r}, f32);
   at::Tensor whl = at::empty({H, K, W}, f32);
@@ -119,14 +147,7 @@ asw_sep_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& aw,
     wvr = at::empty({H, K, W + 2 * r + D - 1}, f32);
     whr = at::empty({H, K, W + D - 1}, f32);
   }
-  at::Tensor bestd = at::empty({H, W}, i32);
-  at::Tensor bestc = at::empty({H, W}, f32);
-  at::Tensor cm = at::empty({H, W}, f32);
-  at::Tensor cp = at::empty({H, W}, f32);
-  at::Tensor ubest = at::empty({H, W}, f32);
-  at::Tensor rbestd = at::empty({H, W}, i32);
-  at::Tensor rpack = at::full({H, W}, -1, ls.options().dtype(at::kLong));
-
+  Outputs o(ls, H, W);
   const int err = asw_sep_wta_launch(
       ls.data_ptr<float>(), rs.data_ptr<float>(), aw.data_ptr<float>(),
       (int)H, (int)W, (int)r, (int)D, (int)(sym != 0), (int)cost_ad,
@@ -135,13 +156,55 @@ asw_sep_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& aw,
       wvl.data_ptr<float>(), whl.data_ptr<float>(),
       sym ? wvr.data_ptr<float>() : nullptr,
       sym ? whr.data_ptr<float>() : nullptr,
-      bestd.data_ptr<int>(), bestc.data_ptr<float>(), cm.data_ptr<float>(),
-      cp.data_ptr<float>(), ubest.data_ptr<float>(),
-      reinterpret_cast<unsigned long long*>(rpack.data_ptr<int64_t>()),
-      rbestd.data_ptr<int>(),
-      c10::cuda::getCurrentCUDAStream(ls.get_device()).stream());
+      o.bestd.data_ptr<int>(), o.bestc.data_ptr<float>(), o.cm.data_ptr<float>(),
+      o.cp.data_ptr<float>(), o.ubest.data_ptr<float>(), o.rpack_ptr(),
+      o.rbestd.data_ptr<int>(), stream_of(ls));
   TORCH_CHECK(err == 0, "asw_sep_wta launch failed: ", asw_error_string(err));
-  return {bestd, bestc, cm, cp, ubest, rbestd};
+  return o.planes();
+}
+
+Planes asw_dlanes_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& sw,
+                      int64_t r, int64_t D, int64_t box, int64_t cost_ad,
+                      double alpha, double one_minus_alpha, double tau_color,
+                      double tau_grad, double inv_gamma_color) {
+  const auto [H, W] = check_stacks(ls, rs, sw, 2, r, D);
+  const int64_t K = 2 * r + 1;
+  TORCH_CHECK(D >= 2 && D <= 128 && K <= 65, "need 2 <= D <= 128 and K <= 65");
+  TORCH_CHECK(H * (W + 2 * r + D - 1) < (int64_t)1 << 31, "image too large");
+  c10::cuda::CUDAGuard guard(ls.device());
+  Outputs o(ls, H, W);
+  const int err = asw_dlanes_wta_launch(
+      ls.data_ptr<float>(), rs.data_ptr<float>(), sw.data_ptr<float>(),
+      (int)H, (int)W, (int)r, (int)D, (int)(box != 0), (int)cost_ad,
+      (float)alpha, (float)one_minus_alpha, (float)tau_color, (float)tau_grad,
+      (float)inv_gamma_color, (float)(1.0 / (double)(K * K)),
+      o.bestd.data_ptr<int>(), o.bestc.data_ptr<float>(), o.cm.data_ptr<float>(),
+      o.cp.data_ptr<float>(), o.ubest.data_ptr<float>(), o.rpack_ptr(),
+      o.rbestd.data_ptr<int>(), stream_of(ls));
+  TORCH_CHECK(err == 0, "asw_dlanes_wta launch failed: ", asw_error_string(err));
+  return o.planes();
+}
+
+Planes asw_sym_dlanes_wta(const at::Tensor& ls, const at::Tensor& rs,
+                          const at::Tensor& sw, int64_t r, int64_t D,
+                          int64_t cost_ad, double alpha, double one_minus_alpha,
+                          double tau_color, double tau_grad,
+                          double inv_gamma_color) {
+  const auto [H, W] = check_stacks(ls, rs, sw, 2, r, D);
+  const int64_t K = 2 * r + 1;
+  TORCH_CHECK(D >= 2 && D <= 128 && K <= 63, "need 2 <= D <= 128 and K <= 63");
+  TORCH_CHECK(H * (W + 2 * r + D - 1) < (int64_t)1 << 31, "image too large");
+  c10::cuda::CUDAGuard guard(ls.device());
+  Outputs o(ls, H, W);
+  const int err = asw_sym_dlanes_wta_launch(
+      ls.data_ptr<float>(), rs.data_ptr<float>(), sw.data_ptr<float>(),
+      (int)H, (int)W, (int)r, (int)D, (int)cost_ad, (float)alpha,
+      (float)one_minus_alpha, (float)tau_color, (float)tau_grad,
+      (float)inv_gamma_color, o.bestd.data_ptr<int>(), o.bestc.data_ptr<float>(),
+      o.cm.data_ptr<float>(), o.cp.data_ptr<float>(), o.ubest.data_ptr<float>(),
+      o.rpack_ptr(), o.rbestd.data_ptr<int>(), stream_of(ls));
+  TORCH_CHECK(err == 0, "asw_sym_dlanes_wta launch failed: ", asw_error_string(err));
+  return o.planes();
 }
 
 }  // namespace
@@ -157,9 +220,21 @@ TORCH_LIBRARY(asw_torch, m) {
       "int cost_ad, int bf16, float alpha, float one_minus_alpha, "
       "float tau_color, float tau_grad, float inv_gamma_color) "
       "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def(
+      "asw_dlanes_wta(Tensor ls, Tensor rs, Tensor sw, int r, int D, int box, "
+      "int cost_ad, float alpha, float one_minus_alpha, float tau_color, "
+      "float tau_grad, float inv_gamma_color) "
+      "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def(
+      "asw_sym_dlanes_wta(Tensor ls, Tensor rs, Tensor sw, int r, int D, "
+      "int cost_ad, float alpha, float one_minus_alpha, float tau_color, "
+      "float tau_grad, float inv_gamma_color) "
+      "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
 }
 
 TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
   m.impl("asw_wta", &asw_wta);
   m.impl("asw_sep_wta", &asw_sep_wta);
+  m.impl("asw_dlanes_wta", &asw_dlanes_wta);
+  m.impl("asw_sym_dlanes_wta", &asw_sym_dlanes_wta);
 }

@@ -1,7 +1,8 @@
-// Device helpers shared by the fused exact kernel (asw_kernel.cu) and the
-// separable kernel (asw_sep_kernel.cu): the raw matching cost of one tap,
-// the bilateral weight, the online left-view WTA state and the right-view
-// fold.
+// Device helpers shared by the port's kernels (asw_kernel.cu,
+// asw_sep_kernel.cu, asw_dlanes_kernel.cu, asw_sym_dlanes_kernel.cu): the
+// raw matching cost of one tap, the bilateral weight, the online left-view
+// WTA state, the right-view fold, and the WTA of an aggregated tile held in
+// shared memory.
 //
 // Numerics: float32, IEEE division; no fast math.
 
@@ -104,6 +105,70 @@ __device__ __forceinline__ void fold_right(unsigned long long* slot, float agg,
   // Values only decrease, so a stale read can only cause a needless
   // atomic, never a skipped one.
   if (packed < *slot) atomicMin(slot, packed);
+}
+
+// The two edge-extended channel stacks every kernel takes: ls (7, H, WL),
+// WL = W + 2r, and rs (7, H, WR), WR = WL + D - 1; PL and PR are their
+// plane strides.
+struct Stacks {
+  const float* ls;
+  const float* rs;
+  int WL, WR;
+  size_t PL, PR;
+};
+
+// Raw cost at row yy, ls column col (image column col - r), disparity d:
+// the right sample is rs column col + D - 1 - d.  Unfused (tap_cost<true>),
+// so it equals the plain version's raw cost bit for bit.
+template <class P>
+__device__ __forceinline__ float stack_cost(const P& p, const Stacks& s, int yy,
+                                            int col, int d, int D) {
+  const float* lt = s.ls + (size_t)yy * s.WL + col;
+  const float* rt = s.rs + (size_t)yy * s.WR + col + D - 1 - d;
+  return tap_cost<true>(p, lt[0], lt[s.PL], lt[2 * s.PL], lt[3 * s.PL], rt[0],
+                        rt[s.PR], rt[2 * s.PR], rt[3 * s.PR]);
+}
+
+// Left-view WTA and right-view fold of one block's aggregated tile:
+// agg[s * stride + d] (s < ncols, d < D) is the aggregated cost of output
+// pixel (y, x0 + s) at disparity d; columns x0 + s >= W are never read.
+// Every thread of the block calls it, after the barrier that follows the
+// tile's last write.  One thread per column runs the online WTA over d
+// ascending; one thread per right column x' in [x0 - D + 1, x0 + ncols)
+// takes the first-occurrence minimum of its candidates C_L(x' + d, d) that
+// lie in this tile and folds it in with one atomicMin, so the tiles of a
+// row combine into the right view's first-occurrence argmin.
+__device__ __forceinline__ void wta_tile(const float* agg, int stride, int ncols,
+                                         int x0, int y, int W, int D,
+                                         int* bestd, float* bestc, float* cm,
+                                         float* cp, float* ubest,
+                                         unsigned long long* rpack) {
+  for (int s = threadIdx.x; s < ncols && x0 + s < W; s += blockDim.x) {
+    Wta wta;
+    for (int d = 0; d < D; ++d) wta.update(agg[s * stride + d], d);
+    const size_t o = (size_t)y * W + x0 + s;
+    bestd[o] = wta.bestd;
+    bestc[o] = wta.bestc;
+    cm[o] = wta.cm;
+    cp[o] = wta.cp;
+    ubest[o] = wta.ubest();
+  }
+  const int xend = min(x0 + ncols, W);  // past the tile's last real column
+  for (int k = threadIdx.x; k < ncols + D - 1; k += blockDim.x) {
+    const int xr = x0 - (D - 1) + k;
+    if (xr < 0) continue;
+    const int hi = min(D - 1, xend - 1 - xr);
+    float bc = INFINITY;
+    int bd = -1;
+    for (int d = max(0, x0 - xr); d <= hi; ++d) {
+      const float a = agg[(xr + d - x0) * stride + d];
+      if (a < bc) {
+        bc = a;
+        bd = d;
+      }
+    }
+    if (bd >= 0) fold_right(rpack + (size_t)y * W + xr, bc, bd);
+  }
 }
 
 __global__ void unpack_right_kernel(const unsigned long long* __restrict__ rpack,

@@ -1,6 +1,7 @@
-"""What the kernel wrappers (``asw_kernel``, ``asw_sep_kernel``) share.
+"""What the kernel wrappers (``asw_kernel``, ``asw_sep_kernel``,
+``asw_dlanes_kernel``, ``asw_sym_dlanes_kernel``) share.
 
-The channel stacks both kernels take, the seven output planes their plain
+The channel stacks every kernel takes, the seven output planes their plain
 versions derive from a materialized volume, the CPU/CUDA dispatch, the
 float32 rounding of scalar constants and the constant tables kept on the
 device.

@@ -2,9 +2,11 @@
 kernel, device idle share and peak memory for the main path.
 
     python -m aswstereomatch_torch.utils.profiling
-        [--geometry middlebury kitti kitti_sep kitti_seplo] [--pairs 3] [--out DIR]
+        [--geometry middlebury kitti kitti_sep kitti_seplo kitti_lo kitti_box
+                    kitti_dlanes] [--pairs 3] [--out DIR]
 
-For each geometry it builds the preset's ``StereoMatcher`` on cuda:0, makes
+For each geometry it builds the preset's ``StereoMatcher`` (with the
+geometry's overrides) on cuda:0, makes
 one synthetic uint8 pair, runs one warm-up call (kernel build, allocator),
 then
 
@@ -36,12 +38,17 @@ import torch
 from ..models.pipeline import StereoMatcher
 from . import synthetic
 
-# geometry -> (preset, height, width); D comes from the preset
+# geometry -> (preset, overrides, height, width); D comes from the preset
 GEOMETRIES = {
-    "middlebury": ("middlebury_asw_full", 375, 450),
-    "kitti": ("kitti_tiled", 375, 1242),
-    "kitti_sep": ("kitti_sep", 375, 1242),
-    "kitti_seplo": ("kitti_seplo", 375, 1242),
+    "middlebury": ("middlebury_asw_full", {}, 375, 450),
+    "kitti": ("kitti_tiled", {}, 375, 1242),
+    "kitti_sep": ("kitti_sep", {}, 375, 1242),
+    "kitti_seplo": ("kitti_seplo", {}, 375, 1242),
+    # the d-lanes paths: left-only ASW and box at D > 64 (K3), symmetric
+    # ASW pinned to kernel_layout="dlanes" (K4)
+    "kitti_lo": ("kitti_tiled", {"asw_symmetric": False}, 375, 1242),
+    "kitti_box": ("kitti_tiled", {"aggregation": "box"}, 375, 1242),
+    "kitti_dlanes": ("kitti_tiled", {"kernel_layout": "dlanes"}, 375, 1242),
 }
 
 
@@ -69,8 +76,8 @@ def _union_us(intervals) -> float:
 
 
 def profile_geometry(name: str, pairs: int, out: Path | None) -> dict:
-    preset, h, w = GEOMETRIES[name]
-    matcher = StereoMatcher.from_preset(preset, device="cuda")
+    preset, overrides, h, w = GEOMETRIES[name]
+    matcher = StereoMatcher.from_preset(preset, device="cuda", **overrides)
     D = matcher.cfg.max_disparity
     p = synthetic.make_pair(height=h, width=w, max_disparity=D, seed=41)
     left, right = p["left"].astype(np.uint8), p["right"].astype(np.uint8)
@@ -109,7 +116,8 @@ def profile_geometry(name: str, pairs: int, out: Path | None) -> dict:
             prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
-        "geometry": f"{w}x{h}", "preset": preset, "max_disparity": D,
+        "geometry": f"{w}x{h}", "preset": preset, "overrides": overrides,
+        "max_disparity": D,
         "pairs": pairs,
         "latency_ms": float(np.median(walls)),
         "window_ms_per_pair": window_ms / pairs,

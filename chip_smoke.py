@@ -1,40 +1,52 @@
-"""On-card smoke run of the PyTorch/CUDA port's main path (one NVIDIA GPU).
+"""On-card smoke run of the PyTorch/CUDA port's main paths (one NVIDIA GPU).
 
     python3 chip_smoke.py
 
-Two kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu), and
-K2, the separable-ASW kernel (ops/cuda/asw_sep_kernel.cu).  Phases, one line
-each (two for a phase that covers both); any failure exits non-zero:
+Four kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
+the separable-ASW kernel (ops/cuda/asw_sep_kernel.cu); K3, the d-lanes
+kernel for left-only ASW and box (ops/cuda/asw_dlanes_kernel.cu); K4, the
+symmetric d-lanes kernel (ops/cuda/asw_sym_dlanes_kernel.cu).  Phases, one
+line each per kernel or path; any failure exits non-zero:
 
   1. device  — refuses to run without CUDA; prints the card's name and
                power limit (nvidia-smi) and the torch / CUDA versions;
-  2. build   — builds both kernels from ops/cuda/ (nvcc sm_90a, one library);
+  2. build   — builds every kernel from ops/cuda/ (nvcc sm_90a, one library);
   3. small   — each kernel against its plain PyTorch version on the
                reference kernel tests' geometries (tests/test_pallas_kernel.py
-               for K1, tests/test_pallas_dlanes.py for K2, whose bfloat16
-               storage mode is held to its drift bar against float32);
+               for K1, tests/test_pallas_dlanes.py for K2, K3 and K4, plus
+               K3 at K = 65 and K4 at K = 63, their window bounds; K2's
+               bfloat16 storage mode is held to its drift bar against
+               float32);
   4. full    — the same comparison at full width: K1 on a synthetic 450x375
-               pair, D=64, r=16; K2 with kitti_sep and kitti_seplo on a
+               pair, D=64, r=16; K2 with kitti_sep and kitti_seplo, K3 with
+               kitti_tiled's config in left-only ASW and in box, K4 with
+               kitti_tiled's config on kernel_layout="dlanes", all on a
                1242x375 pair, D=128, r=16;
-  5. serve   — StereoMatcher.from_preset("middlebury_asw_full") answers three
-               uint8 requests and a batch of two, then kitti_tiled's config
-               matches one 1242x375 D=128 pair; then kitti_sep answers three
-               1242x375 requests and a batch of two and kitti_seplo one, and
-               the kitti_sep map of the kitti_tiled pair must stay within
-               SEP_CONTRACT of the exact one.  Launch counts are reset just
-               before each path and read just after it, and every kernel of
-               the path must have launched (K1 6 times, K2 6 times);
+  5. serve   — each path through StereoMatcher: middlebury_asw_full answers
+               three uint8 requests and a batch of two, then kitti_tiled's
+               config one 1242x375 D=128 pair (K1); kitti_sep three 1242x375
+               requests and a batch of two and kitti_seplo one pair (K2),
+               whose map must stay within SEP_CONTRACT of the exact one;
+               kitti_tiled in left-only ASW three requests and a batch of
+               two, and in box one pair (K3); kitti_tiled on "dlanes" one
+               pair (K4), whose map must agree with K1's.  Launch counts are
+               reset just before each path and read just after it: every
+               kernel of the path must have launched (K1 6, K2 6, K3 5 + 1,
+               K4 1 times) and no other.  A "dlanes" config no d-lanes
+               kernel supports (D = 256) must raise;
   6. times   — median ms per pair (CUDA events) of each kernel's wrapper
                and of its plain version, with the channel stacks built
                inside (ms, plain_ms) and over the
                same pre-built stacks (from_stacks_ms,
                plain_from_stacks_ms), and of the end-to-end call
-               (e2e_ms): K1 at both geometries, K2 for both presets at
-               1242x375.
+               (e2e_ms): K1 at both geometries, K2 for both presets, K3
+               for left-only ASW and box and K4 at 1242x375; and K1 over
+               the stacks of K3's and K4's configs (kernel_layout="xlanes"),
+               so that each new kernel is timed against K1 on its function.
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
-k1_bound / k2_bound); the last line is
+k1_bound / k2_bound / box_bound); the last line is
 {"ok": true, "device": {...}}.  Imports torch, numpy and the port only (no
 jax).
 """
@@ -52,26 +64,28 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 
 # Phase-3 geometries and bars: tests/test_pallas_kernel.py's K1 fixtures.
-# (name, config overrides, (H, W), make_pair kwargs, exact)
+# (name, config overrides, (H, W), make_pair kwargs, bar): bar "exact" holds
+# bestd / rbestd exactly and the float planes at a tolerance (_check_exact),
+# a number is the argmin agreement both views must exceed.
 _BASE = dict(max_disparity=8, cost="tad_grad", aggregation="asw",
              window_radius=2, gamma_color=14.0, gamma_spatial=9.0)
 SMALL_CASES = [
-    ("symmetric", {}, (24, 40), dict(seed=3), True),
-    ("left_only", dict(asw_symmetric=False), (24, 40), dict(seed=3), True),
-    ("ad_cost", dict(cost="ad"), (24, 40), dict(seed=3), True),
-    ("multi_xtile", {}, (16, 200), dict(seed=3), True),
+    ("symmetric", {}, (24, 40), dict(seed=3), "exact"),
+    ("left_only", dict(asw_symmetric=False), (24, 40), dict(seed=3), "exact"),
+    ("ad_cost", dict(cost="ad"), (24, 40), dict(seed=3), "exact"),
+    ("multi_xtile", {}, (16, 200), dict(seed=3), "exact"),
     ("r0_d2", dict(max_disparity=2, window_radius=0), (13, 24),
-     dict(seed=6, num_layers=1), True),
+     dict(seed=6, num_layers=1), "exact"),
     ("r1_d4", dict(max_disparity=4, window_radius=1), (11, 40),
-     dict(seed=6, num_layers=1), True),
-    ("one_tile", {}, (8, 128), dict(seed=6, num_layers=1), True),
+     dict(seed=6, num_layers=1), "exact"),
+    ("one_tile", {}, (8, 128), dict(seed=6, num_layers=1), "exact"),
     # D > the kernel's d-chunk of 8: the WTA state carried across chunks
-    ("r1_d12", dict(max_disparity=12, window_radius=1), (16, 48), dict(seed=3), True),
-    ("d20", dict(max_disparity=20), (24, 48), dict(seed=3), True),
+    ("r1_d12", dict(max_disparity=12, window_radius=1), (16, 48), dict(seed=3), "exact"),
+    ("d20", dict(max_disparity=20), (24, 48), dict(seed=3), "exact"),
     ("box_ad", dict(aggregation="box", cost="ad", window_radius=3), (24, 40),
-     dict(seed=12), False),
+     dict(seed=12), 0.999),
     ("box_tad", dict(aggregation="box", window_radius=3), (24, 40),
-     dict(seed=12), False),
+     dict(seed=12), 0.999),
 ]
 
 
@@ -80,23 +94,52 @@ SMALL_CASES = [
 _SEP = dict(asw_separable=True, asw_symmetric=False)
 _SYM = dict(_SEP, asw_symmetric=True)
 SEP_SMALL_CASES = [
-    ("sep_sym", _SYM, (24, 40), dict(seed=3), True),
-    ("sep_leftonly", _SEP, (24, 40), dict(seed=3), True),
-    ("sep_ad_cost", dict(_SYM, cost="ad"), (24, 40), dict(seed=3), True),
-    ("sep_multitile_odd", _SYM, (21, 150), dict(seed=3), True),
+    ("sep_sym", _SYM, (24, 40), dict(seed=3), "exact"),
+    ("sep_leftonly", _SEP, (24, 40), dict(seed=3), "exact"),
+    ("sep_ad_cost", dict(_SYM, cost="ad"), (24, 40), dict(seed=3), "exact"),
+    ("sep_multitile_odd", _SYM, (21, 150), dict(seed=3), "exact"),
     ("sep_d16_r3", dict(_SYM, max_disparity=16, window_radius=3), (20, 100),
-     dict(seed=3), True),
-    ("sep_d128_multinb", dict(_SYM, max_disparity=128), (16, 192), dict(seed=3), True),
+     dict(seed=3), "exact"),
+    ("sep_d128_multinb", dict(_SYM, max_disparity=128), (16, 192), dict(seed=3), "exact"),
     ("sep_k33_flagship", dict(_SYM, max_disparity=16, window_radius=16), (12, 80),
-     dict(seed=3), True),
+     dict(seed=3), "exact"),
     ("sep_k65_boundary", dict(_SYM, max_disparity=16, window_radius=32), (10, 70),
-     dict(seed=3), True),
-    ("sep_leftonly_small", _SEP, (24, 40), dict(seed=3), True),
+     dict(seed=3), "exact"),
+    ("sep_leftonly_small", _SEP, (24, 40), dict(seed=3), "exact"),
     ("sep_leftonly_k33", dict(_SEP, max_disparity=16, window_radius=16), (12, 80),
-     dict(seed=3), True),
+     dict(seed=3), "exact"),
 ]
 # K2's bfloat16 storage mode, both weight modes (test_pallas_dlanes.py:346-365)
 SEP_BF16_CASES = [("sep_bf16_sym", True), ("sep_bf16_leftonly", False)]
+
+# K3's phase-3 fixtures: tests/test_pallas_dlanes.py:32-46 (left-only ASW)
+# and :95-115 (box pinned to "dlanes"), exact; and K = 65, its bound.
+_LO = dict(asw_symmetric=False)
+_BOX = dict(max_disparity=16, aggregation="box", window_radius=3, kernel_layout="dlanes")
+DLANES_SMALL_CASES = [
+    ("dl_base", _LO, (24, 40), dict(seed=3), "exact"),
+    ("dl_ad_cost", dict(_LO, cost="ad"), (24, 40), dict(seed=3), "exact"),
+    ("dl_multitile_odd", _LO, (21, 150), dict(seed=3), "exact"),
+    ("dl_d16_r3", dict(_LO, max_disparity=16, window_radius=3), (20, 100), dict(seed=3),
+     "exact"),
+    ("dl_d128_multinb", dict(_LO, max_disparity=128), (16, 192), dict(seed=3), "exact"),
+    ("dl_box_one", _BOX, (24, 40), dict(seed=3), "exact"),
+    ("dl_box_multi", _BOX, (21, 150), dict(seed=3), "exact"),
+    ("dl_k65_boundary", dict(_LO, max_disparity=16, window_radius=32), (10, 70),
+     dict(seed=3), "exact"),
+]
+# K4's: tests/test_pallas_dlanes.py:185-196 and K = 63, its bound, at the
+# reference's bar for this kernel (argmin agreement > 99.5%, :211-218).
+_SYMDL = dict(kernel_layout="dlanes")
+SYM_DLANES_SMALL_CASES = [
+    ("sdl_base", _SYMDL, (24, 40), dict(seed=3), 0.995),
+    ("sdl_multitile_odd", _SYMDL, (21, 150), dict(seed=3), 0.995),
+    ("sdl_d16_r3", dict(_SYMDL, max_disparity=16, window_radius=3), (20, 100),
+     dict(seed=3), 0.995),
+    ("sdl_d128_multinb", dict(_SYMDL, max_disparity=128), (16, 192), dict(seed=3), 0.995),
+    ("sdl_k63_boundary", dict(_SYMDL, max_disparity=16, window_radius=31), (10, 70),
+     dict(seed=3), 0.995),
+]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, the dense rates at
 # the 700 W limit): FP32 outside the tensor cores, HBM3.  The special
@@ -159,43 +202,63 @@ def k2_bound(H: int, W: int, cfg) -> tuple:
     return _bound(flops, 2.0 * entries, nbytes)
 
 
+def box_bound(H: int, W: int, cfg) -> tuple:
+    """The box function at its least work: separable running sums, ~4
+    flops per (pixel, d) (an add and a subtract along each axis), and each
+    raw cost once, ~12 flops per (row, extended column, d); not the K^2
+    taps per (pixel, d) of a direct window sum.  Bytes: the two stacks in,
+    six (H, W) planes out."""
+    assert cfg.aggregation == "box", "the bound counts box work"
+    r, D = cfg.window_radius, cfg.max_disparity
+    flops = 4 * H * W * D + 12 * H * (W + 2 * r) * D
+    nbytes = 4 * (7 * H * (W + 2 * r) + 7 * H * (W + 2 * r + D - 1) + 6 * H * W)
+    return _bound(flops, 0.0, nbytes)
+
+
 def fail(msg: str) -> None:
     print(f"FAIL {msg}", flush=True)
     sys.exit(1)
 
 
-def _kernel_module(cfg):
-    from aswstereomatch_torch.ops.cuda import asw_kernel, asw_sep_kernel
+def _kernel_module(cfg, kernel=None):
+    """The port's kernel module named ``kernel`` (a module of ops/cuda), or
+    by default K2 for a separable config and K1 otherwise."""
+    import importlib
 
-    return asw_sep_kernel if cfg.asw_separable else asw_kernel
+    if kernel is None:
+        kernel = "asw_sep_kernel" if cfg.asw_separable else "asw_kernel"
+    return importlib.import_module(f"aswstereomatch_torch.ops.cuda.{kernel}")
 
 
-def check_small(name, overrides, shape, pair_kw, exact, device) -> dict:
-    """Kernel vs plain version on one phase-3 case (K2 for a separable
-    config, else K1); raises AssertionError."""
+def check_small(name, overrides, shape, pair_kw, bar, device, kernel=None) -> dict:
+    """Kernel vs plain version on one phase-3 case (``kernel`` as
+    _kernel_module picks it); raises AssertionError."""
     import torch
 
     from aswstereomatch_torch.config import StereoConfig
     from aswstereomatch_torch.utils import synthetic
 
     cfg = StereoConfig(**{**_BASE, **overrides})
-    kernel = _kernel_module(cfg)
+    module = _kernel_module(cfg, kernel)
     D = cfg.max_disparity
     p = synthetic.make_pair(height=shape[0], width=shape[1], max_disparity=D, **pair_kw)
     l = torch.from_numpy(p["left"]).to(device)
     r = torch.from_numpy(p["right"]).to(device)
-    got = {k: v.cpu().numpy() for k, v in kernel.wta_outputs(l, r, cfg).items()}
-    ref = {k: v.cpu().numpy() for k, v in kernel.wta_outputs_reference(l, r, cfg).items()}
-    if exact:
+    got = {k: v.cpu().numpy() for k, v in module.wta_outputs(l, r, cfg).items()}
+    ref = {k: v.cpu().numpy() for k, v in module.wta_outputs_reference(l, r, cfg).items()}
+    if bar == "exact":
         # bars of test_pallas_kernel.py:55-71 and :160-162 (K1) and
-        # test_pallas_dlanes.py:304-312 (K2: float sums in another order)
-        _check_exact(name, got, ref, D, dict(rtol=1e-4, atol=1e-3) if cfg.asw_separable
-                     else dict(rtol=1e-5, atol=1e-4))
+        # test_pallas_dlanes.py:56-77, :304-312 (K2, K3: float sums in
+        # another order)
+        _check_exact(name, got, ref, D, dict(rtol=1e-5, atol=1e-4)
+                     if module.__name__.endswith(".asw_kernel")
+                     else dict(rtol=1e-4, atol=1e-3))
     else:
-        # box bars of test_pallas_kernel.py:173-178
+        # argmin agreement: K1's box bar (test_pallas_kernel.py:173-178) and
+        # K4's (test_pallas_dlanes.py:211-218)
         agree = float((got["bestd"] == ref["bestd"]).mean())
         ragree = float((got["rbestd"] == ref["rbestd"]).mean())
-        assert agree > 0.999 and ragree > 0.999, f"{name}: agree {agree} / {ragree}"
+        assert agree > bar and ragree > bar, f"{name}: agree {agree} / {ragree}"
         np.testing.assert_allclose(got["bestc"], ref["bestc"], rtol=1e-4, atol=1e-3,
                                    err_msg=f"{name} bestc")
     return {"case": name, "max_abs_err": float(np.abs(got["bestc"] - ref["bestc"]).max())}
@@ -267,7 +330,8 @@ def check_floats_where_argmin_agrees(got, ref, D, rtol=1e-4, atol=1e-3) -> dict:
                                    err_msg=k)
         a, b = got[k][mask], ref[k][mask]
         # equal entries (inf included, where D <= 3 leaves no ubest) count 0
-        errs[k] = float(np.where(a == b, 0.0, np.abs(a - b)).max(initial=0.0))
+        with np.errstate(invalid="ignore"):  # inf - inf, masked by a == b
+            errs[k] = float(np.where(a == b, 0.0, np.abs(a - b)).max(initial=0.0))
     return errs
 
 
@@ -307,7 +371,8 @@ def main() -> int:
              f"not from the checkout at {HERE}")
     from aswstereomatch_torch.config import SEP_CONTRACT
     from aswstereomatch_torch.models import pipeline
-    from aswstereomatch_torch.ops.cuda import asw_kernel, asw_sep_kernel, build, common
+    from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
+                                               asw_sym_dlanes_kernel, build, common)
     from aswstereomatch_torch.utils import evaluate, synthetic
 
     # ---- 1. device ------------------------------------------------------
@@ -335,11 +400,14 @@ def main() -> int:
     print(f"build: {build_s:.1f} s; " + " | ".join(ptxas), flush=True)
 
     # ---- 3. kernel vs plain, small geometries ---------------------------
-    for label, cases in (("small K1", SMALL_CASES), ("small K2", SEP_SMALL_CASES)):
+    for label, kernel, cases in (("small K1", "asw_kernel", SMALL_CASES),
+                                 ("small K2", "asw_sep_kernel", SEP_SMALL_CASES),
+                                 ("small K3", "asw_dlanes_kernel", DLANES_SMALL_CASES),
+                                 ("small K4", "asw_sym_dlanes_kernel", SYM_DLANES_SMALL_CASES)):
         small = []
         for case in cases:
             try:
-                small.append(check_small(*case, device=dev))
+                small.append(check_small(*case, device=dev, kernel=kernel))
             except AssertionError as e:
                 fail(f"{label} {case[0]}: {e}")
         if label == "small K2":
@@ -351,12 +419,12 @@ def main() -> int:
         print(f"{label}: " + ", ".join(f"{s['case']} ok" for s in small), flush=True)
 
     # ---- 4. kernel vs plain at full width -------------------------------
-    def full_width(label, cfg, pair):
-        kernel = _kernel_module(cfg)
+    def full_width(label, cfg, pair, kernel=None):
+        module = _kernel_module(cfg, kernel)
         l = torch.from_numpy(pair["left"]).to(dev)
         r = torch.from_numpy(pair["right"]).to(dev)
-        got = {k: v.cpu().numpy() for k, v in kernel.wta_outputs(l, r, cfg).items()}
-        ref = {k: v.cpu().numpy() for k, v in kernel.wta_outputs_reference(l, r, cfg).items()}
+        got = {k: v.cpu().numpy() for k, v in module.wta_outputs(l, r, cfg).items()}
+        ref = {k: v.cpu().numpy() for k, v in module.wta_outputs_reference(l, r, cfg).items()}
         agree = {}
         for k in ("bestd", "rbestd"):
             agree[k] = _argmin_agreement(got[k], ref[k])
@@ -379,11 +447,19 @@ def main() -> int:
     max_abs_err = full_width("K1 450x375 D=64 r=16", cfg_m, pm)
     cfg_sep = aswstereomatch_torch.get_preset("kitti_sep")
     cfg_seplo = aswstereomatch_torch.get_preset("kitti_seplo")
+    kitti_cfg = aswstereomatch_torch.get_preset("kitti_tiled")
+    cfg_lo = kitti_cfg.replace(asw_symmetric=False)     # K3, left-only ASW
+    cfg_box = kitti_cfg.replace(aggregation="box")      # K3, box at D > 64
+    cfg_sdl = kitti_cfg.replace(kernel_layout="dlanes")  # K4
     pk = synthetic.make_pair(height=375, width=1242, max_disparity=128, seed=31)
     sep_err = full_width("K2 kitti_sep 1242x375 D=128 r=16", cfg_sep, pk)
     full_width("K2 kitti_seplo 1242x375 D=128 r=16", cfg_seplo, pk)
+    dl_err = full_width("K3 left-only 1242x375 D=128 r=16", cfg_lo, pk, "asw_dlanes_kernel")
+    full_width("K3 box 1242x375 D=128 r=16", cfg_box, pk, "asw_dlanes_kernel")
+    sdl_err = full_width("K4 symmetric dlanes 1242x375 D=128 r=16", cfg_sdl, pk,
+                         "asw_sym_dlanes_kernel")
 
-    # ---- 5. main path: matchers serving requests ------------------------
+    # ---- 5. main paths: matchers serving requests -----------------------
     u8 = lambda a: a.astype(np.uint8)  # noqa: E731  (lossless: 8-bit grid)
 
     def check_map(label, d, p, D, max_bad2=None):
@@ -408,44 +484,57 @@ def main() -> int:
                     fail(f"serve: batch[{i}] differs from the single call")
         return disps
 
-    matcher = aswstereomatch_torch.StereoMatcher.from_preset("middlebury_asw_full")
-    kitti_cfg = aswstereomatch_torch.get_preset("kitti_tiled")
-    kitti = aswstereomatch_torch.StereoMatcher(kitti_cfg)
-    sep = aswstereomatch_torch.StereoMatcher.from_preset("kitti_sep")
-    seplo = aswstereomatch_torch.StereoMatcher.from_preset("kitti_seplo")
-    for m in (matcher, kitti, sep, seplo):
-        if pipeline._resolve_backend(m.cfg, m.device) != "cuda":
-            fail(f"serve: {m.cfg} does not resolve to the cuda backend")
+    kernels = {"K1": asw_kernel, "K2": asw_sep_kernel, "K3": asw_dlanes_kernel,
+               "K4": asw_sym_dlanes_kernel}
+
+    def reset():
+        torch.cuda.synchronize()
+        for m in kernels.values():
+            m.launches = 0
+
+    def launched(label, want) -> int:
+        """Fails unless the launches since the last reset are ``want`` (name
+        -> count) and none of any other kernel; returns their sum."""
+        torch.cuda.synchronize()
+        got = {k: m.launches for k, m in kernels.items()}
+        full = {k: want.get(k, 0) for k in kernels}
+        if got != full:
+            fail(f"serve: {label} launched {got}, expected {full}")
+        return sum(want.values())
+
+    Matcher = aswstereomatch_torch.StereoMatcher
+    matcher = Matcher.from_preset("middlebury_asw_full")
+    kitti = Matcher(kitti_cfg)
+    sep = Matcher.from_preset("kitti_sep")
+    seplo = Matcher.from_preset("kitti_seplo")
+    lo, box, sdl = Matcher(cfg_lo), Matcher(cfg_box), Matcher(cfg_sdl)
+    for m, want in ((matcher, asw_kernel), (kitti, asw_kernel), (sep, asw_sep_kernel),
+                    (seplo, asw_sep_kernel), (lo, asw_dlanes_kernel), (box, asw_dlanes_kernel),
+                    (sdl, asw_sym_dlanes_kernel)):
+        if (pipeline._resolve_backend(m.cfg, m.device) != "cuda"
+                or pipeline.kernel_for(m.cfg) is not want):
+            fail(f"serve: {m.cfg} does not resolve to {want.__name__}")
     reqs = [synthetic.make_pair(height=375, width=450, max_disparity=D_m, seed=s)
             for s in (21, 22, 23)]
     reqs_k = [pk] + [synthetic.make_pair(height=375, width=1242, max_disparity=128, seed=s)
                      for s in (32, 33)]
-    torch.cuda.synchronize()
 
     # K1's path: middlebury_asw_full requests, then one kitti_tiled pair
-    asw_kernel.launches = asw_sep_kernel.launches = 0
+    reset()
     disps = serve(matcher, reqs, 2)
     dk = serve(kitti, [pk], 0)[0]
-    torch.cuda.synchronize()
-    main_launches = asw_kernel.launches
-    if (main_launches, asw_sep_kernel.launches) != (6, 0):
-        fail(f"serve: K1's path launched K1 {main_launches} times and K2 "
-             f"{asw_sep_kernel.launches} times, expected 6 and 0")
+    main_launches = launched("K1's path", {"K1": 6})
     bads = [check_map("450x375", d, p, D_m, 0.05) for p, d in zip(reqs, disps)]
     bad_k = check_map("kitti_tiled", dk, pk, 128)
     print(f"serve K1: 3 requests 450x375 bad_2 {[round(b, 5) for b in bads]}, batch of 2 "
           f"== singles, kitti_tiled 1242x375 D=128 bad_2 {bad_k:.5f} density 1.0; "
-          f"K1 launches {main_launches}", flush=True)
+          f"K1 launches {main_launches}, other kernels 0", flush=True)
 
     # K2's path: kitti_sep requests and a batch of two, one kitti_seplo pair
-    asw_kernel.launches = asw_sep_kernel.launches = 0
+    reset()
     ds = serve(sep, reqs_k, 2)
     dlo = serve(seplo, [pk], 0)[0]
-    torch.cuda.synchronize()
-    sep_launches = asw_sep_kernel.launches
-    if (sep_launches, asw_kernel.launches) != (6, 0):
-        fail(f"serve: K2's path launched K2 {sep_launches} times and K1 "
-             f"{asw_kernel.launches} times, expected 6 and 0")
+    sep_launches = launched("K2's path", {"K2": 6})
     bads_s = [check_map("kitti_sep", d, p, 128, 0.05) for p, d in zip(reqs_k, ds)]
     bad_lo = check_map("kitti_seplo", dlo, pk, 128, 0.05)
     delta = evaluate.bad_delta_between(ds[0], dk, 2.0, ~pk["occluded"])
@@ -454,42 +543,94 @@ def main() -> int:
     print(f"serve K2: 3 requests kitti_sep 1242x375 bad_2 {[round(b, 5) for b in bads_s]}, "
           f"batch of 2 == singles, kitti_seplo bad_2 {bad_lo:.5f}, density 1.0; "
           f"kitti_sep vs exact kitti_tiled bad-2.0 delta {delta:.5f} "
-          f"(<= {SEP_CONTRACT['delta_bad2_max']}); K2 launches {sep_launches}", flush=True)
+          f"(<= {SEP_CONTRACT['delta_bad2_max']}); K2 launches {sep_launches}, "
+          f"other kernels 0", flush=True)
+
+    # K3's paths: left-only ASW requests and a batch of two; box, one pair
+    reset()
+    dls = serve(lo, reqs_k, 2)
+    dl_launches = launched("K3's left-only path", {"K3": 5})
+    reset()
+    dbox = serve(box, [pk], 0)[0]
+    dl_launches += launched("K3's box path", {"K3": 1})
+    bads_l = [check_map("left-only", d, p, 128, 0.05) for p, d in zip(reqs_k, dls)]
+    bad_box = check_map("box", dbox, pk, 128)
+    print(f"serve K3: 3 requests left-only ASW 1242x375 D=128 bad_2 "
+          f"{[round(b, 5) for b in bads_l]}, batch of 2 == singles, density 1.0; box 1 pair "
+          f"bad_2 {bad_box:.5f} density 1.0; K3 launches {dl_launches} (5 + 1), "
+          f"other kernels 0", flush=True)
+
+    # K4's path: kitti_tiled on kernel_layout="dlanes", one pair, against K1's map
+    reset()
+    dsdl = serve(sdl, [pk], 0)[0]
+    sdl_launches = launched("K4's path", {"K4": 1})
+    bad_sdl = check_map("symmetric dlanes", dsdl, pk, 128)
+    sdl_agree, sdl_gross = _argmin_agreement(dsdl, dk)  # test_pallas_dlanes.py:232-234
+    if not (sdl_agree > 0.99 and sdl_gross < 0.005):
+        fail(f"serve: K4's map vs K1's: agreement {sdl_agree}, |dd|>2 on {sdl_gross}")
+    reset()
+    try:
+        Matcher(kitti_cfg.replace(kernel_layout="dlanes", max_disparity=256))(
+            u8(pk["left"]), u8(pk["right"]))
+        fail("serve: kernel_layout='dlanes' with D=256 did not raise on the card")
+    except ValueError as e:
+        refused = str(e)
+    launched("the refused D=256 config", {})
+    print(f"serve K4: kitti_tiled on dlanes 1242x375 D=128 bad_2 {bad_sdl:.5f} density 1.0, "
+          f"vs K1's map: within 0.51 on {sdl_agree:.6f}, |dd|>2 on {sdl_gross:.6f}; "
+          f"K4 launches {sdl_launches}, other kernels 0; dlanes D=256 raised: {refused}",
+          flush=True)
 
     # ---- 6. times -------------------------------------------------------
     times = {}
-    for geo, cfg, p, m, reps in (("K1 450x375", cfg_m, reqs[0], matcher, 5),
-                                  ("K1 1242x375", kitti_cfg, pk, kitti, 3),
-                                  ("K2 kitti_sep 1242x375", cfg_sep, pk, sep, 5),
-                                  ("K2 kitti_seplo 1242x375", cfg_seplo, pk, seplo, 5)):
-        kernel = _kernel_module(cfg)
+    for geo, cfg, p, m, reps, kernel in (
+            ("K1 450x375", cfg_m, reqs[0], matcher, 5, None),
+            ("K1 1242x375", kitti_cfg, pk, kitti, 3, None),
+            ("K2 kitti_sep 1242x375", cfg_sep, pk, sep, 5, None),
+            ("K2 kitti_seplo 1242x375", cfg_seplo, pk, seplo, 5, None),
+            ("K3 left-only 1242x375", cfg_lo, pk, lo, 3, "asw_dlanes_kernel"),
+            ("K3 box 1242x375", cfg_box, pk, box, 3, "asw_dlanes_kernel"),
+            ("K4 1242x375", cfg_sdl, pk, sdl, 3, "asw_sym_dlanes_kernel")):
+        module = _kernel_module(cfg, kernel)
         l = torch.from_numpy(p["left"]).to(dev)
         r = torch.from_numpy(p["right"]).to(dev)
         lu, ru = u8(p["left"]), u8(p["right"])
         H, W = p["gt"].shape
-        bound_ms, bound_by = (k2_bound if cfg.asw_separable else k1_bound)(H, W, cfg)
+        if cfg.asw_separable:
+            bound_ms, bound_by = k2_bound(H, W, cfg)
+        elif cfg.aggregation == "box":
+            bound_ms, bound_by = box_bound(H, W, cfg)
+        else:
+            bound_ms, bound_by = k1_bound(H, W, cfg)
         ls, rs = common.stacks(l, r, cfg)
         times[geo] = {  # ms / plain_ms: the wrappers with the stacks built inside
-            "ms": _median_ms(lambda: kernel.wta_outputs(l, r, cfg), reps),
-            "plain_ms": _median_ms(lambda: kernel.wta_outputs_reference(l, r, cfg), reps),
+            "ms": _median_ms(lambda: module.wta_outputs(l, r, cfg), reps),
+            "plain_ms": _median_ms(lambda: module.wta_outputs_reference(l, r, cfg), reps),
             "from_stacks_ms": _median_ms(
-                lambda: kernel.wta_outputs_from_stacks(ls, rs, cfg), reps),
+                lambda: module.wta_outputs_from_stacks(ls, rs, cfg), reps),
             "plain_from_stacks_ms": _median_ms(
-                lambda: kernel.reference_from_stacks(ls, rs, cfg), reps),
+                lambda: module.reference_from_stacks(ls, rs, cfg), reps),
             "e2e_ms": _median_ms(lambda: m(lu, ru), reps),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         t = times[geo]
+        k1_note = ""
+        if kernel is not None:  # K1 on the same function
+            cfg_x = cfg.replace(kernel_layout="xlanes")
+            assert pipeline.kernel_for(cfg_x) is asw_kernel
+            t["k1_from_stacks_ms"] = _median_ms(
+                lambda: asw_kernel.wta_outputs_from_stacks(ls, rs, cfg_x), 2)
+            k1_note = f"; K1 (xlanes) over the same stacks {t['k1_from_stacks_ms']:.3f} ms"
         print(f"times {geo} D={cfg.max_disparity} on {card}: kernel {t['ms']:.3f} ms with "
               f"the channel stacks, {t['from_stacks_ms']:.3f} ms over pre-built stacks "
-              f"(bound {bound_ms:.3f} ms by {bound_by}); plain {t['plain_ms']:.3f} / "
-              f"{t['plain_from_stacks_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair",
-              flush=True)
+              f"(bound {bound_ms:.4f} ms by {bound_by}); plain {t['plain_ms']:.3f} / "
+              f"{t['plain_from_stacks_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair"
+              + k1_note, flush=True)
 
-    def row(name, source, replaces, launches, err, geo):
+    def row(name, source, replaces, launches, err, geo, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, **times[geo],
-                "library_ms": None}
+                "library_ms": None, **extra}
 
     print(json.dumps({"kernels": [
         row("asw_wta", "aswstereomatch_torch/ops/cuda/asw_kernel.cu",
@@ -498,6 +639,12 @@ def main() -> int:
         row("asw_sep_wta", "aswstereomatch_torch/ops/cuda/asw_sep_kernel.cu",
             "aswstereomatch_tpu/ops/pallas/asw_sep_dlanes.py:192", sep_launches,
             sep_err, "K2 kitti_sep 1242x375"),
+        row("asw_dlanes_wta", "aswstereomatch_torch/ops/cuda/asw_dlanes_kernel.cu",
+            "aswstereomatch_tpu/ops/pallas/asw_dlanes.py:223", dl_launches,
+            dl_err, "K3 left-only 1242x375", box=times["K3 box 1242x375"]),
+        row("asw_sym_dlanes_wta", "aswstereomatch_torch/ops/cuda/asw_sym_dlanes_kernel.cu",
+            "aswstereomatch_tpu/ops/pallas/asw_sym_dlanes.py:122", sdl_launches,
+            sdl_err, "K4 1242x375"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

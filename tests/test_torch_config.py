@@ -152,6 +152,8 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "assert 'aswstereomatch_torch.ops.cuda.asw_sep_kernel' in sys.modules\n"
+        "assert 'aswstereomatch_torch.ops.cuda.asw_dlanes_kernel' in sys.modules\n"
+        "assert 'aswstereomatch_torch.ops.cuda.asw_sym_dlanes_kernel' in sys.modules\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'aswstereomatch_tpu')]\n"
         "assert not bad, bad\n"

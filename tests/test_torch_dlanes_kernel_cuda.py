@@ -1,0 +1,150 @@
+"""The hand-written d-lanes CUDA kernels (K3: left-only ASW and box,
+asw_dlanes_kernel.cu; K4: symmetric ASW, asw_sym_dlanes_kernel.cu) against
+their plain PyTorch version, on the card.
+
+These are chip_smoke.py's phase-3 K3 and K4 comparisons (the reference
+kernel tests' geometries and bars, tests/test_pallas_dlanes.py), run as
+tests, plus random small configs and the kernel routes end to end.  They
+need a CUDA device and nvcc, so they skip on machines without a card; run
+them there with
+
+    python -m pytest --noconftest tests/test_torch_dlanes_kernel_cuda.py
+
+(tests/conftest.py imports jax, which the port does not need.)
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch  # noqa: F401  (read by the skipif condition string)
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+# The condition string is evaluated when the test runs, not at import.
+pytestmark = [
+    pytest.mark.requires_cuda,
+    pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device"),
+]
+
+
+def _counts():
+    from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
+                                               asw_sym_dlanes_kernel)
+
+    return (asw_kernel.launches, asw_sep_kernel.launches, asw_dlanes_kernel.launches,
+            asw_sym_dlanes_kernel.launches)
+
+
+@pytest.mark.parametrize("case", chip_smoke.DLANES_SMALL_CASES,
+                         ids=[c[0] for c in chip_smoke.DLANES_SMALL_CASES])
+def test_dlanes_kernel_matches_plain_version(case):
+    before = _counts()
+    chip_smoke.check_small(*case, device=torch.device("cuda", 0), kernel="asw_dlanes_kernel")
+    assert _counts() == (before[0], before[1], before[2] + 1, before[3])
+
+
+@pytest.mark.parametrize("case", chip_smoke.SYM_DLANES_SMALL_CASES,
+                         ids=[c[0] for c in chip_smoke.SYM_DLANES_SMALL_CASES])
+def test_sym_dlanes_kernel_matches_plain_version(case):
+    before = _counts()
+    chip_smoke.check_small(*case, device=torch.device("cuda", 0),
+                           kernel="asw_sym_dlanes_kernel")
+    assert _counts() == (before[0], before[1], before[2], before[3] + 1)
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_dlanes_kernels_fuzz_random_configs(seed):
+    """Random small configs for K3 (left-only ASW or box) and K4 (symmetric):
+    D anywhere in [2, 128] (not a multiple of the kernels' d-groups), r up
+    to each kernel's bound, widths over several column tiles.  K3: argmin
+    agreement > 99.9%; K4 > 99.5% (its bar); the float planes at rtol 1e-4
+    / atol 1e-3 where the argmin agrees."""
+    import numpy as np
+
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_dlanes_kernel, asw_sym_dlanes_kernel
+    from aswstereomatch_torch.utils import synthetic
+
+    rng = np.random.default_rng(500 + seed)
+    mode = ["left_only", "box", "symmetric"][seed % 3]
+    cfg = StereoConfig(
+        max_disparity=int(rng.choice([2, 3, 7, 13, 40, 77, 128])),
+        window_radius=int(rng.choice([0, 1, 4, 9, 31 if mode == "symmetric" else 32])),
+        cost=str(rng.choice(["ad", "tad_grad"])),
+        aggregation="box" if mode == "box" else "asw",
+        asw_symmetric=mode == "symmetric",
+        kernel_layout="dlanes",
+        gamma_color=float(rng.uniform(5, 30)),
+        gamma_spatial=float(rng.uniform(5, 40)),
+        alpha=float(rng.uniform(0.5, 1.0)),
+    )
+    kernel = asw_sym_dlanes_kernel if mode == "symmetric" else asw_dlanes_kernel
+    h, w = int(rng.integers(4, 24)), int(rng.integers(20, 300))
+    p = synthetic.make_pair(height=h, width=w, max_disparity=cfg.max_disparity, seed=seed)
+    dev = torch.device("cuda", 0)
+    l, r = torch.from_numpy(p["left"]).to(dev), torch.from_numpy(p["right"]).to(dev)
+    got = kernel.wta_outputs(l, r, cfg)
+    ref = kernel.wta_outputs_reference(l, r, cfg)
+    bar = 0.995 if mode == "symmetric" else 0.999
+    for k in ("bestd", "rbestd"):
+        assert (got[k] == ref[k]).float().mean().item() > bar, k
+    chip_smoke.check_floats_where_argmin_agrees(
+        {k: v.cpu().numpy() for k, v in got.items()},
+        {k: v.cpu().numpy() for k, v in ref.items()}, cfg.max_disparity)
+    # the same launch again gives the same planes bit for bit
+    again = kernel.wta_outputs(l, r, cfg)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [dict(asw_symmetric=False), dict(asw_symmetric=False, uniqueness_ratio=8.0, fill_holes=False),
+     dict(aggregation="box", window_radius=3, kernel_layout="dlanes"),
+     dict(kernel_layout="dlanes"), dict(kernel_layout="dlanes", median_mode="weighted")],
+    ids=["left_only", "left_only_uniqueness", "box_dlanes", "sym_dlanes", "sym_weighted_median"],
+)
+def test_dlanes_pipeline_matches_eager_on_the_card(overrides):
+    """The d-lanes kernel routes end to end against the eager route, both on
+    the card (test_pallas_dlanes.py:80-92's bars), and a batch equal to
+    single calls bit for bit."""
+    import numpy as np
+
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.models import pipeline
+    from aswstereomatch_torch.utils import synthetic
+
+    cfg = StereoConfig(**{**dict(max_disparity=16, window_radius=4, gamma_spatial=9.0),
+                          **overrides})
+    p = synthetic.make_pair(height=48, width=80, max_disparity=16, seed=5)
+    dev = torch.device("cuda", 0)
+    l, r = torch.from_numpy(p["left"]).to(dev), torch.from_numpy(p["right"]).to(dev)
+    assert pipeline._resolve_backend(cfg, dev) == "cuda"
+    before = _counts()
+    d_k = pipeline.match_pair(l, r, cfg)
+    k4 = cfg.kernel_layout == "dlanes" and cfg.aggregation == "asw" and cfg.asw_symmetric
+    assert _counts() == (before[0], before[1], before[2] + (not k4), before[3] + k4)
+    batch = pipeline.match_batch(torch.stack([l, l]), torch.stack([r, r]), cfg)
+    assert torch.equal(batch[0], d_k) and torch.equal(batch[1], d_k)
+    d_e = pipeline.match_pair(l, r, cfg.replace(backend="eager")).cpu().numpy()
+    diff = np.abs(d_k.cpu().numpy() - d_e)
+    assert np.mean(diff <= 0.51) > 0.99
+    assert np.mean(diff > 2.0) < 0.005
+
+
+def test_dlanes_on_unsupported_geometry_raises_on_the_card():
+    from aswstereomatch_torch.config import get_preset
+    from aswstereomatch_torch.models import pipeline
+
+    dev = torch.device("cuda", 0)
+    z = torch.zeros((8, 16, 3), device=dev)
+    before = _counts()
+    for overrides in (dict(max_disparity=256), dict(window_radius=32)):
+        cfg = get_preset("kitti_tiled").replace(kernel_layout="dlanes", **overrides)
+        with pytest.raises(ValueError, match="dlanes"):
+            pipeline.match_pair(z, z, cfg)
+    assert _counts() == before

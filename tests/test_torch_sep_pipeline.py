@@ -135,9 +135,10 @@ def test_resolve_backend_separable():
         with pytest.raises(ValueError, match="no kernel"):
             pipeline._resolve_backend(cfg.replace(backend="cuda", kernel_layout="xlanes"),
                                       cuda)
-        with pytest.raises(ValueError, match="dlanes"):
-            pipeline._resolve_backend(
-                cfg.replace(kernel_layout="dlanes", max_disparity=256), cuda)
+        for device in (cuda, cpu):  # the reference checks this on every platform
+            with pytest.raises(ValueError, match="dlanes"):
+                pipeline._resolve_backend(
+                    cfg.replace(kernel_layout="dlanes", max_disparity=256), device)
 
 
 def test_kernel_wta_never_computes_separable_with_the_exact_kernel(small_pair):
