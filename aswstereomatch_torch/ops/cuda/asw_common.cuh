@@ -1,8 +1,8 @@
 // Device helpers shared by the port's kernels (asw_kernel.cu,
 // asw_sep_kernel.cu, asw_dlanes_kernel.cu, asw_sym_dlanes_kernel.cu): the
 // raw matching cost of one tap, the bilateral weight, the online left-view
-// WTA state, the right-view fold, and the WTA of an aggregated tile held in
-// shared memory.
+// WTA state, the right-view fold, the symmetric register tile's window-row
+// accumulation, and the WTA of an aggregated tile held in shared memory.
 //
 // Numerics: float32, IEEE division; no fast math.
 
@@ -127,6 +127,70 @@ __device__ __forceinline__ float stack_cost(const P& p, const Stacks& s, int yy,
   const float* rt = s.rs + (size_t)yy * s.WR + col + D - 1 - d;
   return tap_cost<true>(p, lt[0], lt[s.PL], lt[2 * s.PL], lt[3 * s.PL], rt[0],
                         rt[s.PR], rt[2 * s.PR], rt[3 * s.PR]);
+}
+
+// The register tile of the symmetric kernels (asw_kernel.cu, and
+// asw_sym_dlanes_kernel.cu): each thread owns kTileCols columns xb + i and
+// kTileDisps disparities in two runs of 4, d_j = db + j (j < 4) and
+// db + DC/2 + j - 4 (j >= 4) of a d-chunk of DC, so that a quarter-warp's
+// 16-byte loads of a cost row or a right-weight window are one contiguous
+// 128-byte line.
+constexpr int kTileCols = 4;
+constexpr int kTileDisps = 8;
+
+__device__ __forceinline__ void load8(float (&v)[kTileDisps], const float* row,
+                                      int db, int dh) {
+  const float4 a = *reinterpret_cast<const float4*>(row + db);
+  const float4 b = *reinterpret_cast<const float4*>(row + db + dh);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// One window row (or a run of K of its taps) of symmetric ASW:
+// num / den[i][j] += t * C, t = wl * wr, for dx ascending, for the thread's
+// columns xb + i and disparities d_j.  cost[u * DC + dl] is the raw cost
+// of tile column u (the tap of column x at dx is u = x + dx) and d-chunk
+// offset dl; wl[dx * TX + x] the left weights; wr[dx * NC + c] the right
+// weights of right centre c = x - dl + DC.
+__device__ __forceinline__ void accumulate_sym(
+    float (&num)[kTileCols][kTileDisps], float (&den)[kTileCols][kTileDisps],
+    const float* cost, const float* wl, const float* wr, int xb, int db, int K,
+    int DC, int NC, int TX) {
+  constexpr int XT = kTileCols, DT = kTileDisps;
+  const int dh = DC / 2;
+  // win[(dx + i) % 4] holds cost row xb + dx + i.
+  float win[XT][DT];
+#pragma unroll
+  for (int i = 0; i < XT - 1; ++i) load8(win[i], cost + (xb + i) * DC, db, dh);
+  // Right centres of (xb + i, d_j) are cb + 4 + i - j (first run) and
+  // cb - dh + 4 + i - (j - 4) (second run).
+  const int cb = xb - db - 4 + DC;
+  for (int dx0 = 0; dx0 < K; dx0 += XT) {
+#pragma unroll
+    for (int u = 0; u < XT; ++u) {
+      const int dx = dx0 + u;
+      if (dx < K) {
+        load8(win[(u + XT - 1) % XT], cost + (xb + dx + XT - 1) * DC, db, dh);
+        const float4 l = *reinterpret_cast<const float4*>(wl + dx * TX + xb);
+        const float lv[XT] = {l.x, l.y, l.z, l.w};
+        const float* wrow = wr + dx * NC + cb;
+        const float4 a0 = *reinterpret_cast<const float4*>(wrow);
+        const float4 a1 = *reinterpret_cast<const float4*>(wrow + 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(wrow - dh);
+        const float4 b1 = *reinterpret_cast<const float4*>(wrow - dh + 4);
+        const float rv[2][8] = {{a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w},
+                                {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w}};
+#pragma unroll
+        for (int i = 0; i < XT; ++i)
+#pragma unroll
+          for (int j = 0; j < DT; ++j) {
+            const float t = lv[i] * rv[j / 4][4 + i - j % 4];
+            den[i][j] += t;
+            num[i][j] = fmaf(t, win[(u + i) % XT][j], num[i][j]);
+          }
+      }
+    }
+  }
 }
 
 // Left-view WTA and right-view fold of one block's aggregated tile:

@@ -4,7 +4,9 @@ version.
 Counterpart of ``aswstereomatch_tpu/ops/pallas/asw_kernel.py``.  The kernel
 is hand-written CUDA (``asw_kernel.cu``, bound as
 ``torch.ops.asw_torch.asw_wta`` by ``asw_binding.cpp``, built by
-``build.py``).  Both entry points return the same dict of (H, W) planes:
+``build.py``).  ``tile_plan`` sizes the kernel's blocks to the geometry
+and the card's shared memory, and the launch passes the plan to the kernel.
+Both entry points return the same dict of (H, W) planes:
 
   bestd, bestc, cm, cp — left-view integer WTA + parabola triple
   rbestd               — right-view WTA (volume reuse), for the LR check
@@ -19,6 +21,8 @@ and chip_smoke.py compare the kernel against it.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ...config import StereoConfig
@@ -31,6 +35,83 @@ from .common import PLANES, device_table, dispatch, f32, stacks, wta_planes
 # that the main path went through the kernel).
 launches = 0
 
+# What one block of the kernel may have on an H100 (asw_kernel.cu checks the
+# plan against the card's own opt-in limit too).
+SMEM_LIMIT = 232_448
+MAX_THREADS = 512
+MAX_DC = 128
+TILE_COLS = 4   # columns of a thread's register tile
+TILE_DISPS = 8  # disparities of a thread's register tile
+SYMMETRIC, LEFT_ONLY, BOX = 0, 1, 2  # the kernel's Mode
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+class TilePlan(NamedTuple):
+    """One block: ``ty`` output rows x ``tx`` columns, d-chunks of ``dc``,
+    runs of ``kx`` window columns (asw_kernel.cu)."""
+
+    ty: int
+    tx: int
+    dc: int
+    kx: int
+
+    def threads(self) -> int:
+        return self.ty * (self.tx // TILE_COLS) * (self.dc // TILE_DISPS)
+
+    def smem_bytes(self, mode: int) -> int:
+        """asw_kernel.cu's Layout: the stage arrays (raw-cost rows, left
+        weights for ASW, right weights for symmetric), or the aggregated
+        tile over them; two buffers of stack rows; the centres' Lab."""
+        ty, tx, dc, kx = self
+        nc, lw = tx + dc, tx + kx - 1
+        stage = lw * dc
+        if mode != BOX:
+            stage += ty * kx * tx
+        if mode == SYMMETRIC:
+            stage += ty * kx * nc
+        n = _round4(max(stage, ty * tx * (dc + 1))) + 2 * _round4(7 * (lw + nc + kx - 1))
+        if mode != BOX:
+            n += _round4(3 * ty * tx)
+        if mode == SYMMETRIC:
+            n += _round4(3 * ty * nc)
+        return 4 * n
+
+    def fits(self, mode: int) -> bool:
+        return self.threads() <= MAX_THREADS and self.smem_bytes(mode) <= SMEM_LIMIT
+
+
+def tile_plan(H: int, W: int, D: int, r: int, mode: int) -> TilePlan:
+    """The kernel's tile plan for an (H, W) pair at D disparities, radius r.
+
+    Columns: the fewest tiles of at most 64 columns, evened out (450
+    columns run as 8 tiles of 60, not 7 of 64 and one of 2).  Disparities:
+    one chunk of D rounded up to 8 where D <= 128, else chunks of 128.
+    Rows: as many as 512 threads allow, each output row taking
+    (tx / 4) x (dc / 8) threads.  Where shared memory runs short (large
+    K), the plan gives up, in this order, rows, window columns per stage,
+    columns and disparities per chunk; it never refuses a geometry: at one
+    row, one window column, 4 columns and dc <= 32 every D and r fit.
+    """
+    K = 2 * r + 1
+    dc = min(-(-D // TILE_DISPS) * TILE_DISPS, MAX_DC)
+    ntiles = -(-W // 64)
+    tx = TILE_COLS * -(-W // (TILE_COLS * ntiles))
+    per_row = (tx // TILE_COLS) * (dc // TILE_DISPS)
+    plan = TilePlan(max(1, min(H, MAX_THREADS // per_row)), tx, dc, K)
+    while not plan.fits(mode):
+        if plan.ty > 1:
+            plan = plan._replace(ty=plan.ty // 2)
+        elif plan.kx > 1:
+            plan = plan._replace(kx=-(-plan.kx // 2))
+        elif plan.tx > TILE_COLS:
+            plan = plan._replace(tx=max(TILE_COLS, plan.tx // 2 // TILE_COLS * TILE_COLS))
+        else:  # dc > 32: halving keeps a multiple of 8 and >= 32
+            plan = plan._replace(dc=plan.dc // 2)
+    return plan
+
 
 def supports(cfg: StereoConfig) -> bool:
     """The fused kernel covers exact ASW (both weight modes) and box
@@ -40,10 +121,10 @@ def supports(cfg: StereoConfig) -> bool:
 
 
 def _mode(cfg: StereoConfig) -> int:
-    """The kernel's Mode (asw_kernel.cu): 0 symmetric ASW, 1 left-only, 2 box."""
+    """The kernel's Mode (asw_kernel.cu)."""
     if cfg.aggregation == "box":
-        return 2
-    return 0 if cfg.asw_symmetric else 1
+        return BOX
+    return SYMMETRIC if cfg.asw_symmetric else LEFT_ONLY
 
 
 def reference_from_stacks(ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig) -> dict:
@@ -81,20 +162,27 @@ def wta_outputs(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> d
 
 
 def wta_outputs_from_stacks(
-    ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig
+    ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig,
+    plan: TilePlan | None = None,
 ) -> dict:
     """Fused kernel over pre-extended channel stacks.
 
     ls_ext: (7, H, W + 2r); rs_ext: (7, H, W + 2r + D - 1), columns extended
-    per the padded-plane rule.
+    per the padded-plane rule.  ``plan`` overrides ``tile_plan`` (any plan
+    gives the same bits; a plan the kernel cannot run raises).
     """
     _check(cfg)
-    return dispatch(ls_ext, rs_ext, cfg, reference_from_stacks, _launch)
+    return dispatch(ls_ext, rs_ext, cfg, reference_from_stacks,
+                    lambda ls, rs, c: _launch(ls, rs, c, plan))
 
 
-def _launch(ls_ext, rs_ext, cfg) -> dict:
+def _launch(ls_ext, rs_ext, cfg, plan=None) -> dict:
     global launches
     build.load()
+    mode = _mode(cfg)
+    if plan is None:
+        H, W = ls_ext.shape[1], ls_ext.shape[2] - 2 * cfg.window_radius
+        plan = tile_plan(H, W, cfg.max_disparity, cfg.window_radius, mode)
     sw = device_table(spatial_weights_np, cfg, ls_ext.device)
     outs = torch.ops.asw_torch.asw_wta(
         ls_ext.to(torch.float32).contiguous(),
@@ -102,13 +190,14 @@ def _launch(ls_ext, rs_ext, cfg) -> dict:
         sw,
         cfg.window_radius,
         cfg.max_disparity,
-        _mode(cfg),
+        mode,
         int(cfg.cost == "ad"),
         f32(cfg.alpha),
         f32(1.0 - cfg.alpha),
         f32(cfg.tau_color),
         f32(cfg.tau_grad),
         f32(1.0 / cfg.gamma_color),
+        [*plan, plan.smem_bytes(mode)],
     )
     launches += 1
     return dict(zip(PLANES, outs))

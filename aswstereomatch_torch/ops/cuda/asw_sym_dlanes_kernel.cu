@@ -57,8 +57,8 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int TX = 64;                   // output columns per block
-constexpr int XT = 4;                    // columns per thread
-constexpr int DT = 8;                    // disparities per thread (2 runs of 4)
+constexpr int XT = kTileCols;            // columns per thread
+constexpr int DT = kTileDisps;           // disparities per thread (2 runs of 4)
 constexpr int DG = THREADS / (TX / XT);  // 16 disparity groups
 static_assert(DG * 4 == 64, "DG runs of 4 cover half of D <= 128");
 
@@ -69,57 +69,6 @@ struct Params {
   float alpha, one_minus_alpha, tau_color, tau_grad;
   float inv_gamma_color;  // (float)(1 / gamma_color)
 };
-
-__device__ __forceinline__ void load8(float (&v)[DT], const float* row, int db,
-                                      int dh) {
-  const float4 a = *reinterpret_cast<const float4*>(row + db);
-  const float4 b = *reinterpret_cast<const float4*>(row + db + dh);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// One window row: num / den[i][j] += t * C, t for dx ascending, for the
-// thread's columns xb + i and disparities d_j (db + j, db + DP/2 + j - 4).
-__device__ __forceinline__ void accumulate(float (&num)[XT][DT],
-                                           float (&den)[XT][DT],
-                                           const float* cost, const float* wl,
-                                           const float* wr, int xb, int db,
-                                           int K, int DP, int NC) {
-  const int dh = DP / 2;
-  // win[(dx + i) % 4] holds cost row xb + dx + i.
-  float win[XT][DT];
-#pragma unroll
-  for (int i = 0; i < XT - 1; ++i) load8(win[i], cost + (xb + i) * DP, db, dh);
-  // Right centres of (xb + i, d_j) are x0 - DP + cb + 4 + i - j (first run)
-  // and x0 - DP + cb - dh + 4 + i - (j - 4) (second run).
-  const int cb = xb - db - 4 + DP;
-  for (int dx0 = 0; dx0 < K; dx0 += XT) {
-#pragma unroll
-    for (int u = 0; u < XT; ++u) {
-      const int dx = dx0 + u;
-      if (dx < K) {
-        load8(win[(u + XT - 1) % XT], cost + (xb + dx + XT - 1) * DP, db, dh);
-        const float4 l = *reinterpret_cast<const float4*>(wl + dx * TX + xb);
-        const float lv[XT] = {l.x, l.y, l.z, l.w};
-        const float* wrow = wr + dx * NC + cb;
-        const float4 a0 = *reinterpret_cast<const float4*>(wrow);
-        const float4 a1 = *reinterpret_cast<const float4*>(wrow + 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(wrow - dh);
-        const float4 b1 = *reinterpret_cast<const float4*>(wrow - dh + 4);
-        const float rv[2][8] = {{a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w},
-                                {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w}};
-#pragma unroll
-        for (int i = 0; i < XT; ++i)
-#pragma unroll
-          for (int j = 0; j < DT; ++j) {
-            const float t = lv[i] * rv[j / 4][4 + i - j % 4];
-            den[i][j] += t;
-            num[i][j] = fmaf(t, win[(u + i) % XT][j], num[i][j]);
-          }
-      }
-    }
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 2)
 asw_sym_dlanes_wta_kernel(const float* __restrict__ ls,
@@ -191,7 +140,7 @@ asw_sym_dlanes_wta_kernel(const float* __restrict__ ls,
       wr[dx * NC + c] = w;
     }
     __syncthreads();
-    if (active) accumulate(num, den, cost, wl, wr, xb, db, K, DP, NC);
+    if (active) accumulate_sym(num, den, cost, wl, wr, xb, db, K, DP, NC, TX);
     __syncthreads();
   }
 

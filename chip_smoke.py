@@ -16,9 +16,13 @@ line each per kernel or path; any failure exits non-zero:
                for K1, tests/test_pallas_dlanes.py for K2, K3 and K4, plus
                K3 at K = 65 and K4 at K = 63, their window bounds; K2's
                bfloat16 storage mode is held to its drift bar against
-               float32);
+               float32); K1 also past its old easy shapes: D = 160 (more
+               than one d-chunk) in each mode, r = 32, H and W not
+               multiples of its tile plan, D = 1;
   4. full    — the same comparison at full width: K1 on a synthetic 450x375
-               pair, D=64, r=16; K2 with kitti_sep and kitti_seplo, K3 with
+               pair, D=64, r=16, on kitti_tiled's config at 1242x375,
+               D=128, and in box mode at tsukuba_ad_box's 384x288, D=16,
+               r=4; K2 with kitti_sep and kitti_seplo, K3 with
                kitti_tiled's config in left-only ASW and in box, K4 with
                kitti_tiled's config on kernel_layout="dlanes", all on a
                1242x375 pair, D=128, r=16;
@@ -39,7 +43,8 @@ line each per kernel or path; any failure exits non-zero:
                inside (ms, plain_ms) and over the
                same pre-built stacks (from_stacks_ms,
                plain_from_stacks_ms), and of the end-to-end call
-               (e2e_ms): K1 at both geometries, K2 for both presets, K3
+               (e2e_ms): K1 at both ASW geometries and tsukuba_ad_box's
+               box, K2 for both presets, K3
                for left-only ASW and box and K4 at 1242x375; and K1 over
                the stacks of K3's and K4's configs (kernel_layout="xlanes"),
                so that each new kernel is timed against K1 on its function.
@@ -79,13 +84,24 @@ SMALL_CASES = [
     ("r1_d4", dict(max_disparity=4, window_radius=1), (11, 40),
      dict(seed=6, num_layers=1), "exact"),
     ("one_tile", {}, (8, 128), dict(seed=6, num_layers=1), "exact"),
-    # D > the kernel's d-chunk of 8: the WTA state carried across chunks
+    # D > 8 and not a multiple of 8: disparity groups past D
     ("r1_d12", dict(max_disparity=12, window_radius=1), (16, 48), dict(seed=3), "exact"),
     ("d20", dict(max_disparity=20), (24, 48), dict(seed=3), "exact"),
     ("box_ad", dict(aggregation="box", cost="ad", window_radius=3), (24, 40),
      dict(seed=12), 0.999),
     ("box_tad", dict(aggregation="box", window_radius=3), (24, 40),
      dict(seed=12), 0.999),
+    # Beyond the one-thread-per-pixel kernel's easy shapes: D over one
+    # d-chunk of 128 (the WTA state carried across chunks, the right view
+    # folded per chunk) in each mode; the largest window of the K2-K4 cases;
+    # H and W not multiples of the tile plan's rows and columns; D = 1.
+    ("d160_r2", dict(max_disparity=160), (16, 200), dict(seed=3), "exact"),
+    ("d160_left_only", dict(max_disparity=160, asw_symmetric=False), (16, 200),
+     dict(seed=3), "exact"),
+    ("d160_box", dict(max_disparity=160, aggregation="box"), (16, 200), dict(seed=3), 0.999),
+    ("r32_d16", dict(max_disparity=16, window_radius=32), (10, 70), dict(seed=3), "exact"),
+    ("ragged", {}, (45, 150), dict(seed=3), "exact"),
+    ("d1", dict(max_disparity=1, window_radius=1), (9, 20), dict(seed=3), "exact"),
 ]
 
 
@@ -445,6 +461,10 @@ def main() -> int:
     D_m = cfg_m.max_disparity
     pm = synthetic.make_pair(height=375, width=450, max_disparity=D_m, seed=11)
     max_abs_err = full_width("K1 450x375 D=64 r=16", cfg_m, pm)
+    cfg_tsu = aswstereomatch_torch.get_preset("tsukuba_ad_box")  # K1 box, D <= 64
+    ptsu = synthetic.make_pair(height=288, width=384, max_disparity=cfg_tsu.max_disparity,
+                               seed=41)
+    full_width("K1 box tsukuba_ad_box 384x288 D=16 r=4", cfg_tsu, ptsu)
     cfg_sep = aswstereomatch_torch.get_preset("kitti_sep")
     cfg_seplo = aswstereomatch_torch.get_preset("kitti_seplo")
     kitti_cfg = aswstereomatch_torch.get_preset("kitti_tiled")
@@ -452,6 +472,7 @@ def main() -> int:
     cfg_box = kitti_cfg.replace(aggregation="box")      # K3, box at D > 64
     cfg_sdl = kitti_cfg.replace(kernel_layout="dlanes")  # K4
     pk = synthetic.make_pair(height=375, width=1242, max_disparity=128, seed=31)
+    full_width("K1 kitti_tiled 1242x375 D=128 r=16", kitti_cfg, pk)
     sep_err = full_width("K2 kitti_sep 1242x375 D=128 r=16", cfg_sep, pk)
     full_width("K2 kitti_seplo 1242x375 D=128 r=16", cfg_seplo, pk)
     dl_err = full_width("K3 left-only 1242x375 D=128 r=16", cfg_lo, pk, "asw_dlanes_kernel")
@@ -506,9 +527,11 @@ def main() -> int:
     matcher = Matcher.from_preset("middlebury_asw_full")
     kitti = Matcher(kitti_cfg)
     sep = Matcher.from_preset("kitti_sep")
+    tsu = Matcher(cfg_tsu)
     seplo = Matcher.from_preset("kitti_seplo")
     lo, box, sdl = Matcher(cfg_lo), Matcher(cfg_box), Matcher(cfg_sdl)
-    for m, want in ((matcher, asw_kernel), (kitti, asw_kernel), (sep, asw_sep_kernel),
+    for m, want in ((matcher, asw_kernel), (kitti, asw_kernel), (tsu, asw_kernel),
+                    (sep, asw_sep_kernel),
                     (seplo, asw_sep_kernel), (lo, asw_dlanes_kernel), (box, asw_dlanes_kernel),
                     (sdl, asw_sym_dlanes_kernel)):
         if (pipeline._resolve_backend(m.cfg, m.device) != "cuda"
@@ -586,6 +609,7 @@ def main() -> int:
     for geo, cfg, p, m, reps, kernel in (
             ("K1 450x375", cfg_m, reqs[0], matcher, 5, None),
             ("K1 1242x375", kitti_cfg, pk, kitti, 3, None),
+            ("K1 box 384x288", cfg_tsu, ptsu, tsu, 5, None),
             ("K2 kitti_sep 1242x375", cfg_sep, pk, sep, 5, None),
             ("K2 kitti_seplo 1242x375", cfg_seplo, pk, seplo, 5, None),
             ("K3 left-only 1242x375", cfg_lo, pk, lo, 3, "asw_dlanes_kernel"),
@@ -635,7 +659,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("asw_wta", "aswstereomatch_torch/ops/cuda/asw_kernel.cu",
             "aswstereomatch_tpu/ops/pallas/asw_kernel.py:166", main_launches,
-            max_abs_err, "K1 450x375"),
+            max_abs_err, "K1 450x375", kitti=times["K1 1242x375"],
+            box=times["K1 box 384x288"]),
         row("asw_sep_wta", "aswstereomatch_torch/ops/cuda/asw_sep_kernel.cu",
             "aswstereomatch_tpu/ops/pallas/asw_sep_dlanes.py:192", sep_launches,
             sep_err, "K2 kitti_sep 1242x375"),

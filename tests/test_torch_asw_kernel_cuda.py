@@ -38,9 +38,10 @@ def test_cuda_kernel_matches_plain_version(case):
 
 @pytest.mark.parametrize("seed", range(8))
 def test_cuda_kernel_fuzz_random_configs(seed):
-    """Random small configs (test_pallas_kernel.py's fuzz, D not a multiple
-    of the kernel's d-chunk included): argmin agreement > 99.9%, and the
-    float planes at the box bar where the argmin agrees."""
+    """Random small configs (test_pallas_kernel.py's fuzz, widened to D over
+    one d-chunk of 128 and r up to 5; D not a multiple of 8 included):
+    argmin agreement > 99.9%, and the float planes at the box bar where the
+    argmin agrees."""
     import numpy as np
 
     from aswstereomatch_torch.config import StereoConfig
@@ -49,8 +50,8 @@ def test_cuda_kernel_fuzz_random_configs(seed):
 
     rng = np.random.default_rng(100 + seed)
     cfg = StereoConfig(
-        max_disparity=int(rng.choice([4, 8, 12])),
-        window_radius=int(rng.choice([1, 2, 3])),
+        max_disparity=int(rng.choice([4, 8, 12, 37, 130, 160])),
+        window_radius=int(rng.choice([1, 2, 3, 4, 5])),
         cost=str(rng.choice(["ad", "tad_grad"])),
         asw_symmetric=bool(rng.choice([True, False])),
         aggregation=str(rng.choice(["asw", "box"])),
@@ -69,6 +70,51 @@ def test_cuda_kernel_fuzz_random_configs(seed):
     chip_smoke.check_floats_where_argmin_agrees(
         {k: v.cpu().numpy() for k, v in got.items()},
         {k: v.cpu().numpy() for k, v in ref.items()}, cfg.max_disparity)
+
+
+@pytest.mark.parametrize(
+    "overrides,shape",
+    [({}, (45, 150)), (dict(max_disparity=160), (16, 200)),
+     (dict(asw_symmetric=False, max_disparity=37), (21, 90)),
+     (dict(aggregation="box", max_disparity=130), (16, 170))],
+    ids=["symmetric", "symmetric_d160", "left_only", "box_d130"],
+)
+def test_cuda_kernel_two_tile_plans_same_bits(overrides, shape):
+    """One pair through the default tile plan and through another (one row,
+    8 columns, d-chunks of 32, two runs of window columns), each passed to
+    the launch: the six planes are equal bit for
+    bit, since every output sums its taps in one (dy, dx) order."""
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_kernel, common
+    from aswstereomatch_torch.utils import synthetic
+
+    cfg = StereoConfig(**{**chip_smoke._BASE, **overrides})
+    D, r = cfg.max_disparity, cfg.window_radius
+    p = synthetic.make_pair(height=shape[0], width=shape[1], max_disparity=D, seed=4)
+    dev = torch.device("cuda", 0)
+    ls, rs = common.stacks(torch.from_numpy(p["left"]).to(dev),
+                           torch.from_numpy(p["right"]).to(dev), cfg)
+    default = asw_kernel.tile_plan(shape[0], shape[1], D, r, asw_kernel._mode(cfg))
+    other = asw_kernel.TilePlan(ty=1, tx=8, dc=min(32, -(-D // 8) * 8), kx=r + 1)
+    assert other != default
+    a = asw_kernel.wta_outputs_from_stacks(ls, rs, cfg, default)
+    b = asw_kernel.wta_outputs_from_stacks(ls, rs, cfg, other)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_cuda_kernel_refuses_a_plan_it_cannot_run():
+    """A plan over the thread or shared-memory limit raises; nothing runs."""
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_kernel, common
+
+    cfg = StereoConfig(**chip_smoke._BASE)
+    z = torch.zeros((16, 64, 3), device="cuda")
+    ls, rs = common.stacks(z, z, cfg)
+    for plan in (asw_kernel.TilePlan(ty=64, tx=64, dc=8, kx=5),
+                 asw_kernel.TilePlan(ty=1, tx=64, dc=12, kx=5)):
+        with pytest.raises(RuntimeError, match="asw_wta launch failed"):
+            asw_kernel.wta_outputs_from_stacks(ls, rs, cfg, plan)
 
 
 @pytest.mark.parametrize(
