@@ -35,6 +35,7 @@ extern "C" int asw_dlanes_wta_launch(
     const float* ls, const float* rs, const float* sw, int H, int W, int r,
     int D, int box, int cost_ad, float alpha, float one_minus_alpha,
     float tau_color, float tau_grad, float inv_gamma_color, float inv_n,
+    int ty, int tx, int dp, int smem_bytes,
     int* bestd, float* bestc, float* cm, float* cp, float* ubest,
     unsigned long long* rpack, int* rbestd, void* stream);
 extern "C" int asw_sym_dlanes_wta_launch(
@@ -170,10 +171,11 @@ Planes asw_sep_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor&
 Planes asw_dlanes_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& sw,
                       int64_t r, int64_t D, int64_t box, int64_t cost_ad,
                       double alpha, double one_minus_alpha, double tau_color,
-                      double tau_grad, double inv_gamma_color) {
+                      double tau_grad, double inv_gamma_color, at::IntArrayRef plan) {
   const auto [H, W] = check_stacks(ls, rs, sw, 2, r, D);
   const int64_t K = 2 * r + 1;
   TORCH_CHECK(D >= 2 && D <= 128 && K <= 65, "need 2 <= D <= 128 and K <= 65");
+  TORCH_CHECK(plan.size() == 4, "plan must be (ty, tx, dp, smem_bytes)");
   TORCH_CHECK(H * (W + 2 * r + D - 1) < (int64_t)1 << 31, "image too large");
   c10::cuda::CUDAGuard guard(ls.device());
   Outputs o(ls, H, W);
@@ -181,11 +183,13 @@ Planes asw_dlanes_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tens
       ls.data_ptr<float>(), rs.data_ptr<float>(), sw.data_ptr<float>(),
       (int)H, (int)W, (int)r, (int)D, (int)(box != 0), (int)cost_ad,
       (float)alpha, (float)one_minus_alpha, (float)tau_color, (float)tau_grad,
-      (float)inv_gamma_color, (float)(1.0 / (double)(K * K)),
+      (float)inv_gamma_color, (float)(1.0 / (double)(K * K)), (int)plan[0],
+      (int)plan[1], (int)plan[2], (int)plan[3],
       o.bestd.data_ptr<int>(), o.bestc.data_ptr<float>(), o.cm.data_ptr<float>(),
       o.cp.data_ptr<float>(), o.ubest.data_ptr<float>(), o.rpack_ptr(),
       o.rbestd.data_ptr<int>(), stream_of(ls));
-  TORCH_CHECK(err == 0, "asw_dlanes_wta launch failed: ", asw_error_string(err));
+  TORCH_CHECK(err == 0, "asw_dlanes_wta launch failed (tile plan ", plan, "): ",
+              asw_error_string(err));
   return o.planes();
 }
 
@@ -227,7 +231,7 @@ TORCH_LIBRARY(asw_torch, m) {
   m.def(
       "asw_dlanes_wta(Tensor ls, Tensor rs, Tensor sw, int r, int D, int box, "
       "int cost_ad, float alpha, float one_minus_alpha, float tau_color, "
-      "float tau_grad, float inv_gamma_color) "
+      "float tau_grad, float inv_gamma_color, int[] plan) "
       "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
   m.def(
       "asw_sym_dlanes_wta(Tensor ls, Tensor rs, Tensor sw, int r, int D, "

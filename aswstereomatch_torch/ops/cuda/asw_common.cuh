@@ -1,8 +1,9 @@
 // Device helpers shared by the port's kernels (asw_kernel.cu,
 // asw_sep_kernel.cu, asw_dlanes_kernel.cu, asw_sym_dlanes_kernel.cu): the
-// raw matching cost of one tap, the bilateral weight, the online left-view
-// WTA state, the right-view fold, the symmetric register tile's window-row
-// accumulation, and the WTA of an aggregated tile held in shared memory.
+// multiply-high division and the cp.async stage copy, the raw matching cost
+// of one tap, the bilateral weight, the online left-view WTA state, the
+// right-view fold, the symmetric register tile's window-row accumulation,
+// and the WTA of an aggregated tile held in shared memory.
 //
 // Numerics: float32, IEEE division; no fast math.
 
@@ -15,6 +16,38 @@
 namespace {
 
 constexpr float kThird = 1.f / 3.f;  // (float)(1 / 3), as the TPU kernels round it
+
+// i / d by a multiply-high, exact for i * d < 2^32 (the indices here are
+// below 2^20 and d below 2^12); a runtime integer division costs ~20
+// instructions per element of the build loops.
+struct FastDiv {
+  unsigned d, m;
+};
+
+__host__ __device__ inline FastDiv fast_div(unsigned d) {
+  return {d, d == 1 ? 0u : (unsigned)(0xFFFFFFFFu / d + 1)};
+}
+
+__device__ __forceinline__ unsigned operator/(unsigned i, FastDiv f) {
+  return f.d == 1 ? i : __umulhi(i, f.m);
+}
+
+// 4-byte asynchronous copy from global to shared memory (sm_80 and
+// later), and the wait for all of a thread's copies.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
 
 // TAD + gradient (or AD) cost of one tap from the left sample (l0, l1, l2,
 // lg) and the right sample (r0, r1, r2, rg).  P carries cost_ad, alpha,
@@ -201,13 +234,16 @@ __device__ __forceinline__ void accumulate_sym(
 // ascending; one thread per right column x' in [x0 - D + 1, x0 + ncols)
 // takes the first-occurrence minimum of its candidates C_L(x' + d, d) that
 // lie in this tile and folds it in with one atomicMin, so the tiles of a
-// row combine into the right view's first-occurrence argmin.
-__device__ __forceinline__ void wta_tile(const float* agg, int stride, int ncols,
-                                         int x0, int y, int W, int D,
-                                         int* bestd, float* bestc, float* cm,
-                                         float* cp, float* ubest,
-                                         unsigned long long* rpack) {
-  for (int s = threadIdx.x; s < ncols && x0 + s < W; s += blockDim.x) {
+// row combine into the right view's first-occurrence argmin.  wta_tile_lanes
+// is the same with the work spread over lanes lane, lane + nlanes, ... of
+// the block (a block that holds several rows gives each row its threads).
+__device__ __forceinline__ void wta_tile_lanes(const float* agg, int stride,
+                                               int ncols, int x0, int y, int W,
+                                               int D, int* bestd, float* bestc,
+                                               float* cm, float* cp, float* ubest,
+                                               unsigned long long* rpack,
+                                               int lane, int nlanes) {
+  for (int s = lane; s < ncols && x0 + s < W; s += nlanes) {
     Wta wta;
     for (int d = 0; d < D; ++d) wta.update(agg[s * stride + d], d);
     const size_t o = (size_t)y * W + x0 + s;
@@ -218,7 +254,7 @@ __device__ __forceinline__ void wta_tile(const float* agg, int stride, int ncols
     ubest[o] = wta.ubest();
   }
   const int xend = min(x0 + ncols, W);  // past the tile's last real column
-  for (int k = threadIdx.x; k < ncols + D - 1; k += blockDim.x) {
+  for (int k = lane; k < ncols + D - 1; k += nlanes) {
     const int xr = x0 - (D - 1) + k;
     if (xr < 0) continue;
     const int hi = min(D - 1, xend - 1 - xr);
@@ -233,6 +269,15 @@ __device__ __forceinline__ void wta_tile(const float* agg, int stride, int ncols
     }
     if (bd >= 0) fold_right(rpack + (size_t)y * W + xr, bc, bd);
   }
+}
+
+__device__ __forceinline__ void wta_tile(const float* agg, int stride, int ncols,
+                                         int x0, int y, int W, int D,
+                                         int* bestd, float* bestc, float* cm,
+                                         float* cp, float* ubest,
+                                         unsigned long long* rpack) {
+  wta_tile_lanes(agg, stride, ncols, x0, y, W, D, bestd, bestc, cm, cp, ubest,
+                 rpack, threadIdx.x, blockDim.x);
 }
 
 __global__ void unpack_right_kernel(const unsigned long long* __restrict__ rpack,

@@ -116,21 +116,6 @@ constexpr int NPLANES = 7;  // R, G, B, x-gradient, L, a, b
 
 enum Mode { kSymmetric = 0, kLeftOnly = 1, kBox = 2 };
 
-// i / d by a multiply-high, exact for i * d < 2^32 (the indices here are
-// below 2^20 and d below 2^12); a runtime integer division costs ~20
-// instructions per element of the build loops.
-struct FastDiv {
-  unsigned d, m;
-};
-
-__host__ __device__ inline FastDiv fast_div(unsigned d) {
-  return {d, d == 1 ? 0u : (unsigned)(0xFFFFFFFFu / d + 1)};
-}
-
-__device__ __forceinline__ unsigned operator/(unsigned i, FastDiv f) {
-  return f.d == 1 ? i : __umulhi(i, f.m);
-}
-
 struct Params {
   int H, W, r, D, K;
   int cost_ad;    // 1: AD cost, 0: TAD + gradient
@@ -177,23 +162,6 @@ Layout layout(const Plan& q, int mode) {
   L.rctr = L.lctr + (mode != kBox ? round4(3 * q.TY * q.TX) : 0);
   L.total = L.rctr + (mode == kSymmetric ? round4(3 * q.TY * NC) : 0);
   return L;
-}
-
-// 4-byte asynchronous copy from global to shared memory (sm_80 and
-// later), and the wait for all of a thread's copies.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-#if defined(__CUDA_ARCH__)
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-#else
-  *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_all;\n" ::);
-#endif
 }
 
 // Left-only: num[i][j] = fma(wl, C, num), den[i] += wl, dx ascending.

@@ -1,15 +1,17 @@
-"""Time K1 (``ops/cuda/asw_kernel.cu``) under several tile plans on the card.
+"""Time K1 (``ops/cuda/asw_kernel.cu``) or K3 (``ops/cuda/asw_dlanes_kernel.cu``)
+under several tile plans on the card.
 
-    python -m aswstereomatch_torch.utils.plan_sweep [--reps 5]
+    python -m aswstereomatch_torch.utils.plan_sweep [--kernel k1|k3] [--reps 5]
 
 For each geometry (synthetic pairs at full width) it runs the kernel over
-pre-built channel stacks with ``asw_kernel.tile_plan``'s plan and with the
-plans of 1, 2, 4, ... rows (up to the default's, and at least 4) that fit,
-checks that each plan gives the default plan's six planes bit for bit,
-and prints the median ms per call (CUDA events, after one warm-up call).
-K4 (``asw_sym_dlanes_kernel``) is timed over the same stacks where it takes
-the function (symmetric ASW, D <= 128).  It prints the card's name and
-power limit and ptxas' register and spill lines first.  Needs a CUDA device.
+pre-built channel stacks with its ``tile_plan``'s plan and with other plans
+that fit (K1: 1, 2, 4, ... rows up to the default's, and at least 4; K3:
+1, 2, 4, ... rows at 32, 64 and 128 columns), checks that each plan gives
+the default plan's six planes bit for bit, and prints the median ms per
+call (CUDA events, after one warm-up call).  Over the same stacks it also
+times K4 (``asw_sym_dlanes_kernel``) where K1 runs symmetric ASW at D <= 128,
+and K1 where K3 runs.  It prints the card's name and power limit and
+ptxas' register and spill lines first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import get_preset
-from ..ops.cuda import asw_kernel, asw_sym_dlanes_kernel, build, common
+from ..ops.cuda import asw_dlanes_kernel, asw_kernel, asw_sym_dlanes_kernel, build, common
 from . import synthetic
 
 GEOMETRIES = {
@@ -30,6 +32,10 @@ GEOMETRIES = {
     "kitti left-only": ("kitti_tiled", dict(asw_symmetric=False, kernel_layout="xlanes"), 375, 1242),
     "kitti box": ("kitti_tiled", dict(aggregation="box", kernel_layout="xlanes"), 375, 1242),
     "tsukuba box 384x288 D=16": ("tsukuba_ad_box", {}, 288, 384),
+}
+K3_GEOMETRIES = {
+    "kitti left-only": ("kitti_tiled", dict(asw_symmetric=False), 375, 1242),
+    "kitti box": ("kitti_tiled", dict(aggregation="box"), 375, 1242),
 }
 
 
@@ -47,6 +53,19 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def k3_plans(H: int, W: int, D: int, r: int, box: bool) -> list:
+    """K3's default plan, then the others of ty in 1, 2, 4, ... at 32, 64
+    and 128 columns that fit."""
+    best = asw_dlanes_kernel.tile_plan(H, W, D, r, box)
+    out = [best]
+    for tx in (32, 64, 128):
+        for ty in (1, 2, 4, 8, 16):
+            p = best._replace(ty=ty, tx=tx)
+            if p.fits(r, box) and p not in out:
+                out.append(p)
+    return out
+
+
 def plans(H: int, W: int, D: int, r: int, mode: int) -> list:
     """The default plan, then the others of ty in 1, 2, 4, ..."""
     best = asw_kernel.tile_plan(H, W, D, r, mode)
@@ -62,9 +81,12 @@ def plans(H: int, W: int, D: int, r: int, mode: int) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("k1", "k3"), default="k1")
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--geometry", nargs="*", default=list(GEOMETRIES))
+    ap.add_argument("--geometry", nargs="*")
     args = ap.parse_args()
+    geometries = GEOMETRIES if args.kernel == "k1" else K3_GEOMETRIES
+    names = args.geometry or list(geometries)
     if not torch.cuda.is_available():
         raise SystemExit("plan_sweep needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -76,33 +98,49 @@ def main() -> int:
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("ptxas:", ln.strip())
     dev = torch.device("cuda", 0)
-    for name in args.geometry:
-        preset, overrides, H, W = GEOMETRIES[name]
+    for name in names:
+        preset, overrides, H, W = geometries[name]
         cfg = get_preset(preset).replace(**overrides)
         D, r = cfg.max_disparity, cfg.window_radius
         p = synthetic.make_pair(height=H, width=W, max_disparity=D, seed=31)
         ls, rs = common.stacks(torch.from_numpy(p["left"]).to(dev),
                                torch.from_numpy(p["right"]).to(dev), cfg)
-        mode = asw_kernel._mode(cfg)
-        ref = None
-        for plan in plans(H, W, D, r, mode):
-            out = asw_kernel.wta_outputs_from_stacks(ls, rs, cfg, plan)
-            if ref is None:
-                ref = out
-            same = all(torch.equal(out[k], ref[k]) for k in ref)
-            ms = median_ms(lambda: asw_kernel.wta_outputs_from_stacks(ls, rs, cfg, plan),
-                           args.reps)
-            print(f"{name} on {card}: K1 {tuple(plan)} threads {plan.threads()} smem "
-                  f"{plan.smem_bytes(mode)} B: {ms:.3f} ms, same bits as the default "
-                  f"plan: {same}", flush=True)
-            if not same:
+        if args.kernel == "k3":
+            box = cfg.aggregation == "box"
+            if not sweep(f"{name} on {card}: K3", asw_dlanes_kernel, k3_plans(H, W, D, r, box),
+                         lambda plan: plan.smem_bytes(r, box), ls, rs, cfg, args.reps):
                 return 1
+            cfg1 = cfg.replace(kernel_layout="xlanes")
+            ms = median_ms(lambda: asw_kernel.wta_outputs_from_stacks(ls, rs, cfg1), args.reps)
+            print(f"{name} on {card}: K1 over the same stacks {ms:.3f} ms", flush=True)
+            continue
+        mode = asw_kernel._mode(cfg)
+        if not sweep(f"{name} on {card}: K1", asw_kernel, plans(H, W, D, r, mode),
+                     lambda plan: plan.smem_bytes(mode), ls, rs, cfg, args.reps):
+            return 1
         if cfg.aggregation == "asw" and cfg.asw_symmetric and D <= 128:
             cfg4 = cfg.replace(kernel_layout="dlanes")
             ms = median_ms(lambda: asw_sym_dlanes_kernel.wta_outputs_from_stacks(ls, rs, cfg4),
                            args.reps)
             print(f"{name} on {card}: K4 over the same stacks {ms:.3f} ms", flush=True)
     return 0
+
+
+def sweep(label, kernel, plan_list, smem_bytes, ls, rs, cfg, reps) -> bool:
+    """``kernel`` (a wrapper module taking ``plan=``) under each plan; prints
+    each plan's median ms; False if a plan's planes differ from the first's."""
+    ref = None
+    for plan in plan_list:
+        out = kernel.wta_outputs_from_stacks(ls, rs, cfg, plan)
+        if ref is None:
+            ref = out
+        same = all(torch.equal(out[k], ref[k]) for k in ref)
+        ms = median_ms(lambda: kernel.wta_outputs_from_stacks(ls, rs, cfg, plan), reps)
+        print(f"{label} {tuple(plan)} threads {plan.threads()} smem {smem_bytes(plan)} B: "
+              f"{ms:.3f} ms, same bits as the default plan: {same}", flush=True)
+        if not same:
+            return False
+    return True
 
 
 if __name__ == "__main__":

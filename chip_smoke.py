@@ -14,7 +14,10 @@ line each per kernel or path; any failure exits non-zero:
   3. small   — each kernel against its plain PyTorch version on the
                reference kernel tests' geometries (tests/test_pallas_kernel.py
                for K1, tests/test_pallas_dlanes.py for K2, K3 and K4, plus
-               K3 at K = 65 and K4 at K = 63, their window bounds; K2's
+               K3 at K = 65 and K4 at K = 63, their window bounds, and K3
+               at heights of several of its tile plan's rows, not a
+               multiple of them, left-only and box; K3's box bit for bit;
+               K2's
                bfloat16 storage mode is held to its drift bar against
                float32); K1 also past its old easy shapes: D = 160 (more
                than one d-chunk) in each mode, r = 32, H and W not
@@ -23,7 +26,8 @@ line each per kernel or path; any failure exits non-zero:
                pair, D=64, r=16, on kitti_tiled's config at 1242x375,
                D=128, and in box mode at tsukuba_ad_box's 384x288, D=16,
                r=4; K2 with kitti_sep and kitti_seplo, K3 with
-               kitti_tiled's config in left-only ASW and in box, K4 with
+               kitti_tiled's config in left-only ASW and in box (box bit
+               for bit), K4 with
                kitti_tiled's config on kernel_layout="dlanes", all on a
                1242x375 pair, D=128, r=16;
   5. serve   — each path through StereoMatcher: middlebury_asw_full answers
@@ -143,6 +147,13 @@ DLANES_SMALL_CASES = [
     ("dl_box_multi", _BOX, (21, 150), dict(seed=3), "exact"),
     ("dl_k65_boundary", dict(_LO, max_disparity=16, window_radius=32), (10, 70),
      dict(seed=3), "exact"),
+    # Blocks of several output rows (tile plans (8, 32, 128) and (8, 56, 64)):
+    # H at least 3 x TY and not a multiple of it, so that whole multi-row
+    # blocks, a partial last block and the clamped rows are held exactly
+    # (tests/test_torch_dlanes_tile_plan.py checks these plans).
+    ("dl_rows_left_only", dict(_LO, max_disparity=128, window_radius=3), (29, 150),
+     dict(seed=3), "exact"),
+    ("dl_rows_box", dict(_BOX, max_disparity=64), (29, 150), dict(seed=3), "exact"),
 ]
 # K4's: tests/test_pallas_dlanes.py:185-196 and K = 63, its bound, at the
 # reference's bar for this kernel (argmin agreement > 99.5%, :211-218).
@@ -262,6 +273,8 @@ def check_small(name, overrides, shape, pair_kw, bar, device, kernel=None) -> di
     r = torch.from_numpy(p["right"]).to(device)
     got = {k: v.cpu().numpy() for k, v in module.wta_outputs(l, r, cfg).items()}
     ref = {k: v.cpu().numpy() for k, v in module.wta_outputs_reference(l, r, cfg).items()}
+    if module.__name__.endswith(".asw_dlanes_kernel") and cfg.aggregation == "box":
+        _check_bits(name, got, ref, D)
     if bar == "exact":
         # bars of test_pallas_kernel.py:55-71 and :160-162 (K1) and
         # test_pallas_dlanes.py:56-77, :304-312 (K2, K3: float sums in
@@ -291,6 +304,18 @@ def _check_exact(name, got, ref, D, tol) -> None:
     for k in ("cm", "cp"):
         np.testing.assert_allclose(got[k][mask], ref[k][mask], **tol, err_msg=f"{name} {k}")
     np.testing.assert_allclose(got["ubest"], ref["ubest"], **tol, err_msg=f"{name} ubest")
+
+
+def _check_bits(name, got, ref, D) -> None:
+    """K3's box against its plain version bit for bit: both sum each window
+    column over dy, then K columns over dx, and scale by (float)(1 / K^2).
+    cm / cp where both neighbours of bestd exist (elsewhere undefined).
+    Raises AssertionError."""
+    bd = ref["bestd"]
+    inner = (bd > 0) & (bd < D - 1)
+    for k in ("bestd", "rbestd", "bestc", "ubest", "cm", "cp"):
+        a, b = (got[k], ref[k]) if k not in ("cm", "cp") else (got[k][inner], ref[k][inner])
+        assert np.array_equal(a, b), f"{name} {k}: not bit for bit"
 
 
 def check_sep_bf16(name, sym, device) -> dict:
@@ -449,6 +474,8 @@ def main() -> int:
                      f"|dd|>2 on {agree[k][1]:.6f}")
         try:  # f32 sums of many taps in another order: the box-kernel bar
             errs = check_floats_where_argmin_agrees(got, ref, cfg.max_disparity)
+            if module is asw_dlanes_kernel and cfg.aggregation == "box":
+                _check_bits(label, got, ref, cfg.max_disparity)
         except AssertionError as e:
             fail(f"full {label}: {e}")
         print(f"full: {label} bestd agree {agree['bestd'][0]:.6f} "
@@ -639,6 +666,10 @@ def main() -> int:
         }
         t = times[geo]
         k1_note = ""
+        if module is asw_dlanes_kernel:
+            t["plan"] = list(asw_dlanes_kernel.tile_plan(H, W, cfg.max_disparity,
+                                                         cfg.window_radius,
+                                                         cfg.aggregation == "box"))
         if kernel is not None:  # K1 on the same function
             cfg_x = cfg.replace(kernel_layout="xlanes")
             assert pipeline.kernel_for(cfg_x) is asw_kernel
@@ -649,7 +680,7 @@ def main() -> int:
               f"the channel stacks, {t['from_stacks_ms']:.3f} ms over pre-built stacks "
               f"(bound {bound_ms:.4f} ms by {bound_by}); plain {t['plain_ms']:.3f} / "
               f"{t['plain_from_stacks_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair"
-              + k1_note, flush=True)
+              + k1_note + (f"; plan {t['plan']}" if "plan" in t else ""), flush=True)
 
     def row(name, source, replaces, launches, err, geo, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

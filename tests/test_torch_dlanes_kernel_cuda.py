@@ -102,6 +102,56 @@ def test_dlanes_kernels_fuzz_random_configs(seed):
 
 
 @pytest.mark.parametrize(
+    "overrides,shape",
+    [(dict(asw_symmetric=False, max_disparity=40, window_radius=4), (19, 90)),
+     (dict(aggregation="box", max_disparity=40, window_radius=4), (19, 90)),
+     (dict(asw_symmetric=False, max_disparity=16, window_radius=32), (10, 70)),
+     (dict(aggregation="box", max_disparity=128, window_radius=32), (11, 100))],
+    ids=["left_only", "box", "left_only_k65", "box_k65_d128"],
+)
+def test_dlanes_kernel_two_tile_plans_same_bits(overrides, shape):
+    """One pair through K3's default tile plan and through a one-row plan
+    of 8 columns, each passed to the launch: the six planes are equal bit
+    for bit, since every output sums its taps in one (dy, dx) order."""
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_dlanes_kernel, common
+    from aswstereomatch_torch.utils import synthetic
+
+    cfg = StereoConfig(**{**chip_smoke._BASE, "kernel_layout": "dlanes", **overrides})
+    D, r, box = cfg.max_disparity, cfg.window_radius, cfg.aggregation == "box"
+    p = synthetic.make_pair(height=shape[0], width=shape[1], max_disparity=D, seed=9)
+    dev = torch.device("cuda", 0)
+    ls, rs = common.stacks(torch.from_numpy(p["left"]).to(dev),
+                           torch.from_numpy(p["right"]).to(dev), cfg)
+    default = asw_dlanes_kernel.tile_plan(shape[0], shape[1], D, r, box)
+    other = asw_dlanes_kernel.TilePlan(ty=1, tx=8, dp=default.dp)
+    assert other != default and default.ty > 1
+    a = asw_dlanes_kernel.wta_outputs_from_stacks(ls, rs, cfg, default)
+    b = asw_dlanes_kernel.wta_outputs_from_stacks(ls, rs, cfg, other)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_dlanes_kernel_refuses_a_plan_it_cannot_run():
+    """A plan over the thread limit, with the wrong disparity width, or a
+    box plan whose rows are no power of two raises; nothing runs."""
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_dlanes_kernel, common
+
+    z = torch.zeros((16, 64, 3), device="cuda")
+    for over, plan in ((dict(asw_symmetric=False, max_disparity=128),
+                        asw_dlanes_kernel.TilePlan(ty=8, tx=64, dp=128)),
+                       (dict(asw_symmetric=False), asw_dlanes_kernel.TilePlan(ty=1, tx=64, dp=16)),
+                       (dict(aggregation="box"), asw_dlanes_kernel.TilePlan(ty=3, tx=64, dp=8))):
+        cfg = StereoConfig(**{**chip_smoke._BASE, "kernel_layout": "dlanes", **over})
+        ls, rs = common.stacks(z, z, cfg)
+        before = _counts()
+        with pytest.raises(RuntimeError, match="asw_dlanes_wta launch failed"):
+            asw_dlanes_kernel.wta_outputs_from_stacks(ls, rs, cfg, plan)
+        assert _counts() == before
+
+
+@pytest.mark.parametrize(
     "overrides",
     [dict(asw_symmetric=False), dict(asw_symmetric=False, uniqueness_ratio=8.0, fill_holes=False),
      dict(aggregation="box", window_radius=3, kernel_layout="dlanes"),
