@@ -203,7 +203,10 @@ def match_pair(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> to
 
 def match_batch(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
     """(B, H, W[, 3]) x2 -> (B, H, W): one pair at a time (a single pair
-    already fills the card)."""
+    already fills the card).  Zero pairs give a (0, H, W) float32 tensor, as
+    the reference's batch of none does."""
+    if left.shape[0] == 0:
+        return torch.empty((0, *left.shape[1:3]), dtype=torch.float32, device=left.device)
     return torch.stack(
         [match_pair(l, r, cfg) for l, r in zip(left, right)]
     )

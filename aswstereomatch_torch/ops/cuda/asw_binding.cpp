@@ -3,7 +3,7 @@
 // asw_sep_wta (separable ASW, asw_sep_kernel.cu), asw_dlanes_wta (left-only
 // ASW or box, asw_dlanes_kernel.cu) and asw_sym_dlanes_wta (symmetric ASW,
 // asw_sym_dlanes_kernel.cu).  Each checks its inputs, allocates the outputs
-// and scratch and launches on the current CUDA stream; a launch error
+// and launches on the current CUDA stream; a launch error
 // raises.  They have only a CUDA implementation: CPU tensors take the plain
 // PyTorch versions in the ops/cuda/*.py wrappers before they get here.
 
@@ -27,8 +27,8 @@ extern "C" int asw_wta_launch(
 extern "C" int asw_sep_wta_launch(
     const float* ls, const float* rs, const float* aw, int H, int W, int r,
     int D, int sym, int cost_ad, int bf16, float alpha, float one_minus_alpha,
-    float tau_color, float tau_grad, float inv_gamma_color, float* wvl,
-    float* whl, float* wvr, float* whr, int* bestd, float* bestc, float* cm,
+    float tau_color, float tau_grad, float inv_gamma_color, int ty, int tx,
+    int dc, int kx, int smem_bytes, int* bestd, float* bestc, float* cm,
     float* cp, float* ubest, unsigned long long* rpack, int* rbestd,
     void* stream);
 extern "C" int asw_dlanes_wta_launch(
@@ -137,34 +137,24 @@ Planes asw_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& sw,
 Planes asw_sep_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& aw,
                    int64_t r, int64_t D, int64_t sym, int64_t cost_ad, int64_t bf16,
                    double alpha, double one_minus_alpha, double tau_color,
-                   double tau_grad, double inv_gamma_color) {
+                   double tau_grad, double inv_gamma_color, at::IntArrayRef plan) {
   const auto [H, W] = check_stacks(ls, rs, aw, 1, r, D);
-  TORCH_CHECK(r <= 32, "need r <= 32");
-  const int64_t K = 2 * r + 1;
-  TORCH_CHECK(H * K * (W + 2 * r + D - 1) < (int64_t)1 << 31, "image too large");
+  TORCH_CHECK(D >= 2 && D <= 128 && r <= 32, "need 2 <= D <= 128 and r <= 32");
+  TORCH_CHECK(plan.size() == 5, "plan must be (ty, tx, dc, kx, smem_bytes)");
+  TORCH_CHECK(H * (W + 2 * r + D - 1) < (int64_t)1 << 31, "image too large");
   c10::cuda::CUDAGuard guard(ls.device());
-  const auto f32 = ls.options();
-  // 1-D weight planes (scratch), (H, K, columns).
-  at::Tensor wvl = at::empty({H, K, W + 2 * r}, f32);
-  at::Tensor whl = at::empty({H, K, W}, f32);
-  at::Tensor wvr, whr;
-  if (sym) {
-    wvr = at::empty({H, K, W + 2 * r + D - 1}, f32);
-    whr = at::empty({H, K, W + D - 1}, f32);
-  }
   Outputs o(ls, H, W);
   const int err = asw_sep_wta_launch(
       ls.data_ptr<float>(), rs.data_ptr<float>(), aw.data_ptr<float>(),
       (int)H, (int)W, (int)r, (int)D, (int)(sym != 0), (int)cost_ad,
       (int)(bf16 != 0), (float)alpha, (float)one_minus_alpha,
-      (float)tau_color, (float)tau_grad, (float)inv_gamma_color,
-      wvl.data_ptr<float>(), whl.data_ptr<float>(),
-      sym ? wvr.data_ptr<float>() : nullptr,
-      sym ? whr.data_ptr<float>() : nullptr,
+      (float)tau_color, (float)tau_grad, (float)inv_gamma_color, (int)plan[0],
+      (int)plan[1], (int)plan[2], (int)plan[3], (int)plan[4],
       o.bestd.data_ptr<int>(), o.bestc.data_ptr<float>(), o.cm.data_ptr<float>(),
       o.cp.data_ptr<float>(), o.ubest.data_ptr<float>(), o.rpack_ptr(),
       o.rbestd.data_ptr<int>(), stream_of(ls));
-  TORCH_CHECK(err == 0, "asw_sep_wta launch failed: ", asw_error_string(err));
+  TORCH_CHECK(err == 0, "asw_sep_wta launch failed (tile plan ", plan, "): ",
+              asw_error_string(err));
   return o.planes();
 }
 
@@ -226,7 +216,7 @@ TORCH_LIBRARY(asw_torch, m) {
   m.def(
       "asw_sep_wta(Tensor ls, Tensor rs, Tensor aw, int r, int D, int sym, "
       "int cost_ad, int bf16, float alpha, float one_minus_alpha, "
-      "float tau_color, float tau_grad, float inv_gamma_color) "
+      "float tau_color, float tau_grad, float inv_gamma_color, int[] plan) "
       "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
   m.def(
       "asw_dlanes_wta(Tensor ls, Tensor rs, Tensor sw, int r, int D, int box, "

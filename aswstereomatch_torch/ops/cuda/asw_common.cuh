@@ -2,8 +2,9 @@
 // asw_sep_kernel.cu, asw_dlanes_kernel.cu, asw_sym_dlanes_kernel.cu): the
 // multiply-high division and the cp.async stage copy, the raw matching cost
 // of one tap, the bilateral weight, the online left-view WTA state, the
-// right-view fold, the symmetric register tile's window-row accumulation,
-// and the WTA of an aggregated tile held in shared memory.
+// right-view fold, the symmetric register tile's right-weight loads and
+// window-row accumulation, and the WTA of an aggregated tile held in shared
+// memory.
 //
 // Numerics: float32, IEEE division; no fast math.
 
@@ -179,6 +180,23 @@ __device__ __forceinline__ void load8(float (&v)[kTileDisps], const float* row,
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// The right weights of a register tile (kTileCols x kTileDisps, the
+// disparities in two runs of 4, db and db + dh): rv[0] holds row entries
+// c .. c + 7, rv[1] entries c - dh .. c - dh + 7, with c the tile's base
+// right index (16-byte aligned); (column xb + i, d_j) takes
+// rv[j / 4][4 + i - j % 4].
+__device__ __forceinline__ void load_right(float (&rv)[2][8], const float* wrow,
+                                           int dh) {
+  const float4 a0 = *reinterpret_cast<const float4*>(wrow);
+  const float4 a1 = *reinterpret_cast<const float4*>(wrow + 4);
+  const float4 b0 = *reinterpret_cast<const float4*>(wrow - dh);
+  const float4 b1 = *reinterpret_cast<const float4*>(wrow - dh + 4);
+  rv[0][0] = a0.x; rv[0][1] = a0.y; rv[0][2] = a0.z; rv[0][3] = a0.w;
+  rv[0][4] = a1.x; rv[0][5] = a1.y; rv[0][6] = a1.z; rv[0][7] = a1.w;
+  rv[1][0] = b0.x; rv[1][1] = b0.y; rv[1][2] = b0.z; rv[1][3] = b0.w;
+  rv[1][4] = b1.x; rv[1][5] = b1.y; rv[1][6] = b1.z; rv[1][7] = b1.w;
+}
+
 // One window row (or a run of K of its taps) of symmetric ASW:
 // num / den[i][j] += t * C, t = wl * wr, for dx ascending, for the thread's
 // columns xb + i and disparities d_j.  cost[u * DC + dl] is the raw cost
@@ -206,13 +224,8 @@ __device__ __forceinline__ void accumulate_sym(
         load8(win[(u + XT - 1) % XT], cost + (xb + dx + XT - 1) * DC, db, dh);
         const float4 l = *reinterpret_cast<const float4*>(wl + dx * TX + xb);
         const float lv[XT] = {l.x, l.y, l.z, l.w};
-        const float* wrow = wr + dx * NC + cb;
-        const float4 a0 = *reinterpret_cast<const float4*>(wrow);
-        const float4 a1 = *reinterpret_cast<const float4*>(wrow + 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(wrow - dh);
-        const float4 b1 = *reinterpret_cast<const float4*>(wrow - dh + 4);
-        const float rv[2][8] = {{a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w},
-                                {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w}};
+        float rv[2][8];
+        load_right(rv, wr + dx * NC + cb, dh);
 #pragma unroll
         for (int i = 0; i < XT; ++i)
 #pragma unroll

@@ -1,17 +1,20 @@
-"""Time K1 (``ops/cuda/asw_kernel.cu``) or K3 (``ops/cuda/asw_dlanes_kernel.cu``)
-under several tile plans on the card.
+"""Time K1 (``ops/cuda/asw_kernel.cu``), K2 (``ops/cuda/asw_sep_kernel.cu``)
+or K3 (``ops/cuda/asw_dlanes_kernel.cu``) under several tile plans on the
+card.
 
-    python -m aswstereomatch_torch.utils.plan_sweep [--kernel k1|k3] [--reps 5]
+    python -m aswstereomatch_torch.utils.plan_sweep [--kernel k1|k2|k3] [--reps 5]
 
 For each geometry (synthetic pairs at full width) it runs the kernel over
 pre-built channel stacks with its ``tile_plan``'s plan and with other plans
-that fit (K1: 1, 2, 4, ... rows up to the default's, and at least 4; K3:
-1, 2, 4, ... rows at 32, 64 and 128 columns), checks that each plan gives
-the default plan's six planes bit for bit, and prints the median ms per
-call (CUDA events, after one warm-up call).  Over the same stacks it also
-times K4 (``asw_sym_dlanes_kernel``) where K1 runs symmetric ASW at D <= 128,
-and K1 where K3 runs.  It prints the card's name and power limit and
-ptxas' register and spill lines first.  Needs a CUDA device.
+that fit (K1: 1, 2, 4, ... rows up to the default's, and at least 4; K2:
+48, 64, 96 and 128 columns x d-chunks of 16, 32 and 64 at the most rows
+512 threads allow and half of them; K3: 1, 2, 4, ... rows at 32, 64 and
+128 columns), checks that each plan gives the default plan's six planes
+bit for bit, and prints the median ms per call (CUDA events, after one
+warm-up call).  Over the same stacks it also times K4
+(``asw_sym_dlanes_kernel``) where K1 runs symmetric ASW at D <= 128, and
+K1 where K3 runs.  It prints the card's name and power limit and ptxas'
+register and spill lines first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from .. import get_preset
-from ..ops.cuda import asw_dlanes_kernel, asw_kernel, asw_sym_dlanes_kernel, build, common
+from ..ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel, asw_sym_dlanes_kernel,
+                        build, common)
 from . import synthetic
 
 GEOMETRIES = {
@@ -36,6 +40,11 @@ GEOMETRIES = {
 K3_GEOMETRIES = {
     "kitti left-only": ("kitti_tiled", dict(asw_symmetric=False), 375, 1242),
     "kitti box": ("kitti_tiled", dict(aggregation="box"), 375, 1242),
+}
+
+K2_GEOMETRIES = {
+    "kitti_sep": ("kitti_sep", {}, 375, 1242),
+    "kitti_seplo": ("kitti_seplo", {}, 375, 1242),
 }
 
 
@@ -66,6 +75,26 @@ def k3_plans(H: int, W: int, D: int, r: int, box: bool) -> list:
     return out
 
 
+def k2_plans(H: int, W: int, D: int, r: int, sym: bool) -> list:
+    """K2's default plan, then at 48, 64, 96 and 128 columns and d-chunks
+    of 16, 32 and 64 (at most D rounded up to 8) the plans of the most rows
+    512 threads allow and of half of them, each with the longest run of
+    horizontal taps that fits."""
+    best = asw_sep_kernel.tile_plan(H, W, D, r, sym)
+    out = [best]
+    for tx in (48, 64, 96, 128):
+        for dc in sorted({min(c, -(-D // 8) * 8) for c in (16, 32, 64)}):
+            full = asw_sep_kernel.TilePlan(1, tx, dc, 2 * r + 1)
+            most = asw_sep_kernel.MAX_THREADS // full.threads(r)
+            for ty in sorted({most, most // 2}):
+                p = full._replace(ty=min(ty, H))
+                while p.ty >= 1 and p.kx > 1 and not p.fits(r, sym):
+                    p = p._replace(kx=p.kx - 1)
+                if p.ty >= 1 and p.fits(r, sym) and p not in out:
+                    out.append(p)
+    return out
+
+
 def plans(H: int, W: int, D: int, r: int, mode: int) -> list:
     """The default plan, then the others of ty in 1, 2, 4, ..."""
     best = asw_kernel.tile_plan(H, W, D, r, mode)
@@ -81,11 +110,11 @@ def plans(H: int, W: int, D: int, r: int, mode: int) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k1", "k3"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3"), default="k1")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--geometry", nargs="*")
     args = ap.parse_args()
-    geometries = GEOMETRIES if args.kernel == "k1" else K3_GEOMETRIES
+    geometries = {"k1": GEOMETRIES, "k2": K2_GEOMETRIES, "k3": K3_GEOMETRIES}[args.kernel]
     names = args.geometry or list(geometries)
     if not torch.cuda.is_available():
         raise SystemExit("plan_sweep needs a CUDA device")
@@ -105,6 +134,13 @@ def main() -> int:
         p = synthetic.make_pair(height=H, width=W, max_disparity=D, seed=31)
         ls, rs = common.stacks(torch.from_numpy(p["left"]).to(dev),
                                torch.from_numpy(p["right"]).to(dev), cfg)
+        if args.kernel == "k2":
+            sym = cfg.asw_symmetric
+            if not sweep(f"{name} on {card}: K2", asw_sep_kernel, k2_plans(H, W, D, r, sym),
+                         lambda plan: plan.smem_bytes(r, sym), ls, rs, cfg, args.reps,
+                         lambda plan: plan.threads(r)):
+                return 1
+            continue
         if args.kernel == "k3":
             box = cfg.aggregation == "box"
             if not sweep(f"{name} on {card}: K3", asw_dlanes_kernel, k3_plans(H, W, D, r, box),
@@ -126,9 +162,10 @@ def main() -> int:
     return 0
 
 
-def sweep(label, kernel, plan_list, smem_bytes, ls, rs, cfg, reps) -> bool:
+def sweep(label, kernel, plan_list, smem_bytes, ls, rs, cfg, reps, threads=None) -> bool:
     """``kernel`` (a wrapper module taking ``plan=``) under each plan; prints
-    each plan's median ms; False if a plan's planes differ from the first's."""
+    each plan's median ms; False if a plan's planes differ from the first's.
+    ``threads(plan)`` gives a plan's block size (default ``plan.threads()``)."""
     ref = None
     for plan in plan_list:
         out = kernel.wta_outputs_from_stacks(ls, rs, cfg, plan)
@@ -136,7 +173,8 @@ def sweep(label, kernel, plan_list, smem_bytes, ls, rs, cfg, reps) -> bool:
             ref = out
         same = all(torch.equal(out[k], ref[k]) for k in ref)
         ms = median_ms(lambda: kernel.wta_outputs_from_stacks(ls, rs, cfg, plan), reps)
-        print(f"{label} {tuple(plan)} threads {plan.threads()} smem {smem_bytes(plan)} B: "
+        nthreads = threads(plan) if threads else plan.threads()
+        print(f"{label} {tuple(plan)} threads {nthreads} smem {smem_bytes(plan)} B: "
               f"{ms:.3f} ms, same bits as the default plan: {same}", flush=True)
         if not same:
             return False

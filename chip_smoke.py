@@ -17,11 +17,12 @@ line each per kernel or path; any failure exits non-zero:
                K3 at K = 65 and K4 at K = 63, their window bounds, and K3
                at heights of several of its tile plan's rows, not a
                multiple of them, left-only and box; K3's box bit for bit;
-               K2's
-               bfloat16 storage mode is held to its drift bar against
-               float32); K1 also past its old easy shapes: D = 160 (more
-               than one d-chunk) in each mode, r = 32, H and W not
-               multiples of its tile plan, D = 1;
+               K2 the same, symmetric and left-only, over several row
+               blocks, column tiles and d-chunks; K2's bfloat16 storage
+               mode is held to its drift bar against float32); K1 also
+               past its old easy shapes: D = 160 (more than one d-chunk)
+               in each mode, r = 32, H and W not multiples of its tile
+               plan, D = 1;
   4. full    — the same comparison at full width: K1 on a synthetic 450x375
                pair, D=64, r=16, on kitti_tiled's config at 1242x375,
                D=128, and in box mode at tsukuba_ad_box's 384x288, D=16,
@@ -51,7 +52,9 @@ line each per kernel or path; any failure exits non-zero:
                box, K2 for both presets, K3
                for left-only ASW and box and K4 at 1242x375; and K1 over
                the stacks of K3's and K4's configs (kernel_layout="xlanes"),
-               so that each new kernel is timed against K1 on its function.
+               so that each new kernel is timed against K1 on its function;
+               K2's and K3's tile plans, and K2's peak allocation of one
+               end-to-end call.
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
@@ -127,6 +130,15 @@ SEP_SMALL_CASES = [
      dict(seed=3), "exact"),
     ("sep_leftonly_small", _SEP, (24, 40), dict(seed=3), "exact"),
     ("sep_leftonly_k33", dict(_SEP, max_disparity=16, window_radius=16), (12, 80),
+     dict(seed=3), "exact"),
+    # Blocks of several output rows (tile plan (6, 72, 32, 11) in both
+    # modes): H at least 3 x TY and not a multiple of it, r >= 4, more than
+    # one d-chunk and column tile, so that whole multi-row blocks, a partial
+    # last block and the clamped top and bottom rows are held exactly
+    # (tests/test_torch_sep_tile_plan.py checks these plans).
+    ("sep_rows_sym", dict(_SYM, max_disparity=40, window_radius=5), (41, 130),
+     dict(seed=3), "exact"),
+    ("sep_rows_left_only", dict(_SEP, max_disparity=40, window_radius=5), (41, 130),
      dict(seed=3), "exact"),
 ]
 # K2's bfloat16 storage mode, both weight modes (test_pallas_dlanes.py:346-365)
@@ -670,6 +682,16 @@ def main() -> int:
             t["plan"] = list(asw_dlanes_kernel.tile_plan(H, W, cfg.max_disparity,
                                                          cfg.window_radius,
                                                          cfg.aggregation == "box"))
+        if module is asw_sep_kernel:
+            t["plan"] = list(asw_sep_kernel.tile_plan(H, W, cfg.max_disparity,
+                                                      cfg.window_radius, cfg.asw_symmetric))
+            # peak allocation of one end-to-end call, above what the script holds
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            m(lu, ru)
+            torch.cuda.synchronize()
+            t["peak_alloc_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
         if kernel is not None:  # K1 on the same function
             cfg_x = cfg.replace(kernel_layout="xlanes")
             assert pipeline.kernel_for(cfg_x) is asw_kernel
@@ -680,7 +702,9 @@ def main() -> int:
               f"the channel stacks, {t['from_stacks_ms']:.3f} ms over pre-built stacks "
               f"(bound {bound_ms:.4f} ms by {bound_by}); plain {t['plain_ms']:.3f} / "
               f"{t['plain_from_stacks_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair"
-              + k1_note + (f"; plan {t['plan']}" if "plan" in t else ""), flush=True)
+              + k1_note + (f"; plan {t['plan']}" if "plan" in t else "")
+              + (f"; peak allocation of a call {t['peak_alloc_mib']:.3f} MiB"
+                 if "peak_alloc_mib" in t else ""), flush=True)
 
     def row(name, source, replaces, launches, err, geo, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -694,7 +718,7 @@ def main() -> int:
             box=times["K1 box 384x288"]),
         row("asw_sep_wta", "aswstereomatch_torch/ops/cuda/asw_sep_kernel.cu",
             "aswstereomatch_tpu/ops/pallas/asw_sep_dlanes.py:192", sep_launches,
-            sep_err, "K2 kitti_sep 1242x375"),
+            sep_err, "K2 kitti_sep 1242x375", seplo=times["K2 kitti_seplo 1242x375"]),
         row("asw_dlanes_wta", "aswstereomatch_torch/ops/cuda/asw_dlanes_kernel.cu",
             "aswstereomatch_tpu/ops/pallas/asw_dlanes.py:223", dl_launches,
             dl_err, "K3 left-only 1242x375", box=times["K3 box 1242x375"]),

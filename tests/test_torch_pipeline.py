@@ -177,6 +177,19 @@ def test_matcher_uint8_equals_float_and_batch_equals_singles():
                                rtol=0, atol=0)
 
 
+def test_matcher_batch_of_zero_pairs():
+    """A batch of no pairs gives an empty (0, H, W) float32 map, the shape
+    the reference's match_batch returns for the same inputs."""
+    cfg = CFG_TAD.replace(max_disparity=8, window_radius=2)
+    z = np.zeros((0, 24, 40, 3), np.uint8)
+    out = asm.StereoMatcher(port(cfg), device="cpu").batch(z, z)
+    ref = np.asarray(J(ref_pipeline.match_batch, cfg=cfg)(jnp.asarray(z, jnp.float32),
+                                                          jnp.asarray(z, jnp.float32)))
+    assert out.dtype == torch.float32 and out.device.type == "cpu"
+    assert tuple(out.shape) == ref.shape == (0, 24, 40)
+    assert ref.dtype == np.float32
+
+
 def test_matcher_validates_shapes():
     m = asm.StereoMatcher.from_preset("tsukuba_ad_box", device="cpu")
     with pytest.raises(ValueError, match="shape mismatch"):

@@ -110,3 +110,56 @@ def test_sep_pipeline_matches_eager_on_the_card(overrides):
     diff = np.abs(d_k - d_e)
     assert np.mean(diff <= 0.51) > 0.99
     assert np.mean(diff > 2.0) < 0.005
+
+
+@pytest.mark.parametrize(
+    "overrides,shape",
+    [(dict(max_disparity=40, window_radius=5), (41, 130)),
+     (dict(asw_symmetric=False, max_disparity=40, window_radius=5), (41, 130)),
+     (dict(max_disparity=16, window_radius=32), (10, 70)),
+     (dict(max_disparity=128, window_radius=3, volume_dtype="bfloat16"), (19, 100))],
+    ids=["sym", "left_only", "sym_k65", "bf16_d128"],
+)
+def test_sep_kernel_two_tile_plans_same_bits(overrides, shape):
+    """One pair through K2's default tile plan and through a one-row plan
+    of 8 columns, chunks of 8 and runs of 3 taps (left-only: all K), each
+    passed to the launch: the six planes are equal bit for bit, since every
+    output sums its taps in one (dy, then dx) order."""
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_sep_kernel, common
+    from aswstereomatch_torch.utils import synthetic
+
+    cfg = StereoConfig(**{**chip_smoke._BASE, **chip_smoke._SYM, **overrides})
+    D, r = cfg.max_disparity, cfg.window_radius
+    p = synthetic.make_pair(height=shape[0], width=shape[1], max_disparity=D, seed=9)
+    dev = torch.device("cuda", 0)
+    ls, rs = common.stacks(torch.from_numpy(p["left"]).to(dev),
+                           torch.from_numpy(p["right"]).to(dev), cfg)
+    default = asw_sep_kernel.tile_plan(shape[0], shape[1], D, r, cfg.asw_symmetric)
+    other = asw_sep_kernel.TilePlan(ty=1, tx=8, dc=8, kx=3 if cfg.asw_symmetric else 2 * r + 1)
+    assert other != default and default.ty > 1
+    a = asw_sep_kernel.wta_outputs_from_stacks(ls, rs, cfg, default)
+    b = asw_sep_kernel.wta_outputs_from_stacks(ls, rs, cfg, other)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_sep_kernel_refuses_a_plan_it_cannot_run():
+    """A plan over the thread limit, over the shared memory, with a chunk
+    that is no multiple of 8 or with runs longer than K raises; nothing
+    runs."""
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_kernel, asw_sep_kernel, common
+
+    z = torch.zeros((16, 64, 3), device="cuda")
+    cfg = StereoConfig(**{**chip_smoke._BASE, **chip_smoke._SYM, "max_disparity": 128,
+                          "window_radius": 16})
+    ls, rs = common.stacks(z, z, cfg)
+    for plan in (asw_sep_kernel.TilePlan(ty=8, tx=96, dc=32, kx=17),
+                 asw_sep_kernel.TilePlan(ty=4, tx=96, dc=32, kx=33),
+                 asw_sep_kernel.TilePlan(ty=1, tx=64, dc=12, kx=5),
+                 asw_sep_kernel.TilePlan(ty=1, tx=64, dc=16, kx=34)):
+        before = (asw_kernel.launches, asw_sep_kernel.launches)
+        with pytest.raises(RuntimeError, match="asw_sep_wta launch failed"):
+            asw_sep_kernel.wta_outputs_from_stacks(ls, rs, cfg, plan)
+        assert (asw_kernel.launches, asw_sep_kernel.launches) == before
