@@ -41,9 +41,9 @@ extern "C" int asw_dlanes_wta_launch(
 extern "C" int asw_sym_dlanes_wta_launch(
     const float* ls, const float* rs, const float* sw, int H, int W, int r,
     int D, int cost_ad, float alpha, float one_minus_alpha, float tau_color,
-    float tau_grad, float inv_gamma_color, int* bestd, float* bestc, float* cm,
-    float* cp, float* ubest, unsigned long long* rpack, int* rbestd,
-    void* stream);
+    float tau_grad, float inv_gamma_color, int ty, int tx, int dc, int kx, int smem_bytes,
+    int* bestd, float* bestc, float* cm, float* cp, float* ubest,
+    unsigned long long* rpack, int* rbestd, void* stream);
 extern "C" const char* asw_error_string(int err);
 
 namespace {
@@ -187,10 +187,11 @@ Planes asw_sym_dlanes_wta(const at::Tensor& ls, const at::Tensor& rs,
                           const at::Tensor& sw, int64_t r, int64_t D,
                           int64_t cost_ad, double alpha, double one_minus_alpha,
                           double tau_color, double tau_grad,
-                          double inv_gamma_color) {
+                          double inv_gamma_color, at::IntArrayRef plan) {
   const auto [H, W] = check_stacks(ls, rs, sw, 2, r, D);
   const int64_t K = 2 * r + 1;
   TORCH_CHECK(D >= 2 && D <= 128 && K <= 63, "need 2 <= D <= 128 and K <= 63");
+  TORCH_CHECK(plan.size() == 5, "plan must be (ty, tx, dc, kx, smem_bytes)");
   TORCH_CHECK(H * (W + 2 * r + D - 1) < (int64_t)1 << 31, "image too large");
   c10::cuda::CUDAGuard guard(ls.device());
   Outputs o(ls, H, W);
@@ -198,10 +199,12 @@ Planes asw_sym_dlanes_wta(const at::Tensor& ls, const at::Tensor& rs,
       ls.data_ptr<float>(), rs.data_ptr<float>(), sw.data_ptr<float>(),
       (int)H, (int)W, (int)r, (int)D, (int)cost_ad, (float)alpha,
       (float)one_minus_alpha, (float)tau_color, (float)tau_grad,
-      (float)inv_gamma_color, o.bestd.data_ptr<int>(), o.bestc.data_ptr<float>(),
+      (float)inv_gamma_color, (int)plan[0], (int)plan[1], (int)plan[2], (int)plan[3],
+      (int)plan[4], o.bestd.data_ptr<int>(), o.bestc.data_ptr<float>(),
       o.cm.data_ptr<float>(), o.cp.data_ptr<float>(), o.ubest.data_ptr<float>(),
       o.rpack_ptr(), o.rbestd.data_ptr<int>(), stream_of(ls));
-  TORCH_CHECK(err == 0, "asw_sym_dlanes_wta launch failed: ", asw_error_string(err));
+  TORCH_CHECK(err == 0, "asw_sym_dlanes_wta launch failed (tile plan ", plan, "): ",
+              asw_error_string(err));
   return o.planes();
 }
 
@@ -226,7 +229,7 @@ TORCH_LIBRARY(asw_torch, m) {
   m.def(
       "asw_sym_dlanes_wta(Tensor ls, Tensor rs, Tensor sw, int r, int D, "
       "int cost_ad, float alpha, float one_minus_alpha, float tau_color, "
-      "float tau_grad, float inv_gamma_color) "
+      "float tau_grad, float inv_gamma_color, int[] plan) "
       "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
 }
 

@@ -2,7 +2,7 @@
 // asw_sep_kernel.cu, asw_dlanes_kernel.cu, asw_sym_dlanes_kernel.cu): the
 // multiply-high division and the cp.async stage copy, the raw matching cost
 // of one tap, the bilateral weight, the online left-view WTA state, the
-// right-view fold, the symmetric register tile's right-weight loads and
+// right-view fold, the symmetric register tiles' right-weight loads and
 // window-row accumulation, and the WTA of an aggregated tile held in shared
 // memory.
 //
@@ -239,6 +239,67 @@ __device__ __forceinline__ void accumulate_sym(
   }
 }
 
+// The wide register tile of asw_sym_dlanes_kernel.cu: each thread owns
+// kWideCols columns xb + i and kWideDisps consecutive disparities db + j of
+// a d-chunk.  A warp's threads take consecutive disparity groups of one
+// column group, so that its loads of the left weights are broadcasts and
+// its loads of a cost row and of the right weights are contiguous: per
+// window column, one 16-byte load of a new cost row, two of left weights
+// and three of right weights feed 32 taps, against seven for
+// accumulate_sym's 4 x 8 tile.  The taps and their order per output are
+// accumulate_sym's.
+constexpr int kWideCols = 8;
+constexpr int kWideDisps = 4;
+
+// num / den[i][j] += t * C, t = wl * wr, for dx ascending, for columns
+// xb + i and disparities db + j: cost[u * DC + dl] is the raw cost of tile
+// column u (the tap of column x at dx is u = x + dx) and d-chunk offset
+// dl; wl[dx * TX + x] the left weights; wr[dx * NC + c] the right weights
+// of right centre c = x - dl + DC.
+__device__ __forceinline__ void accumulate_sym_wide(
+    float (&num)[kWideCols][kWideDisps], float (&den)[kWideCols][kWideDisps],
+    const float* cost, const float* wl, const float* wr, int xb, int db, int K, int DC,
+    int NC, int TX) {
+  constexpr int XW = kWideCols, DW = kWideDisps;
+  // win[(dx + i) % 8] holds cost row xb + dx + i.
+  float win[XW][DW];
+#pragma unroll
+  for (int i = 0; i < XW - 1; ++i) {
+    const float4 c = *reinterpret_cast<const float4*>(cost + (xb + i) * DC + db);
+    win[i][0] = c.x; win[i][1] = c.y; win[i][2] = c.z; win[i][3] = c.w;
+  }
+  // The right centre of (xb + i, db + j) is cb + 4 + i - j.
+  const int cb = xb - db - 4 + DC;
+  for (int dx0 = 0; dx0 < K; dx0 += XW) {
+#pragma unroll
+    for (int u = 0; u < XW; ++u) {
+      const int dx = dx0 + u;
+      if (dx < K) {
+        const float4 c = *reinterpret_cast<const float4*>(cost + (xb + dx + XW - 1) * DC + db);
+        float* nw = win[(u + XW - 1) % XW];
+        nw[0] = c.x; nw[1] = c.y; nw[2] = c.z; nw[3] = c.w;
+        const float4 l0 = *reinterpret_cast<const float4*>(wl + dx * TX + xb);
+        const float4 l1 = *reinterpret_cast<const float4*>(wl + dx * TX + xb + 4);
+        const float lv[XW] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+        const float* wrow = wr + dx * NC + cb;
+        const float4 r0 = *reinterpret_cast<const float4*>(wrow);
+        const float4 r1 = *reinterpret_cast<const float4*>(wrow + 4);
+        const float4 r2 = *reinterpret_cast<const float4*>(wrow + 8);
+        const float rv[12] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
+                              r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
+#pragma unroll
+        for (int i = 0; i < XW; ++i)
+#pragma unroll
+          for (int j = 0; j < DW; ++j) {
+            const float t = lv[i] * rv[4 + i - j];
+            den[i][j] += t;
+            num[i][j] = fmaf(t, win[(u + i) % XW][j], num[i][j]);
+          }
+      }
+    }
+  }
+}
+
 // Left-view WTA and right-view fold of one block's aggregated tile:
 // agg[s * stride + d] (s < ncols, d < D) is the aggregated cost of output
 // pixel (y, x0 + s) at disparity d; columns x0 + s >= W are never read.
@@ -281,6 +342,55 @@ __device__ __forceinline__ void wta_tile_lanes(const float* agg, int stride,
       }
     }
     if (bd >= 0) fold_right(rpack + (size_t)y * W + xr, bc, bd);
+  }
+}
+
+// The end of one d-chunk of a block of rows (asw_sym_dlanes_kernel.cu):
+// agg[(t * TX + x) * AS + d - d0] is the aggregated cost of output pixel
+// (y0 + t, x0 + x) at d in [d0, dend), for rows t < nrows.  Left view: the
+// online WTA of each column over this chunk's d, its state read from
+// state[t * TX + x] unless the chunk is the first and written back unless
+// it is the last; right view: per right column x' and output row, the
+// first-occurrence minimum of the candidates C_L(x' + d, d) with d in this
+// chunk and x' + d in this tile, folded in with one atomicMin.  Lanes
+// lane, lane + nlanes, ... of the block share the work.
+__device__ __forceinline__ void wta_chunk_rows(
+    const float* agg, int AS, Wta* state, bool first, bool last, int TX, FastDiv byTX,
+    int nrows, int x0, int y0, int W, int d0, int dend, int* bestd, float* bestc, float* cm,
+    float* cp, float* ubest, unsigned long long* rpack, int lane, int nlanes) {
+  for (int c = lane; c < nrows * TX; c += nlanes) {
+    const int t = (unsigned)c / byTX, x = x0 + c - t * TX;
+    if (x >= W) continue;
+    Wta w = first ? Wta() : state[c];
+    for (int d = d0; d < dend; ++d) w.update(agg[c * AS + d - d0], d);
+    if (!last) {
+      state[c] = w;
+      continue;
+    }
+    const size_t o = (size_t)(y0 + t) * W + x;
+    bestd[o] = w.bestd;
+    bestc[o] = w.bestc;
+    cm[o] = w.cm;
+    cp[o] = w.cp;
+    ubest[o] = w.ubest();
+  }
+  const int xend = min(x0 + TX, W);
+  const int NR = TX + dend - d0 - 1;
+  const FastDiv byNR = fast_div(NR);
+  for (int k = lane; k < nrows * NR; k += nlanes) {
+    const int t = (unsigned)k / byNR, xr = x0 - (dend - 1) + k - t * NR;
+    if (xr < 0) continue;
+    const int hi = min(dend - 1, xend - 1 - xr);
+    float bc = INFINITY;
+    int bd = -1;
+    for (int d = max(d0, x0 - xr); d <= hi; ++d) {
+      const float a = agg[(t * TX + xr + d - x0) * AS + d - d0];
+      if (a < bc) {
+        bc = a;
+        bd = d;
+      }
+    }
+    if (bd >= 0) fold_right(rpack + (size_t)(y0 + t) * W + xr, bc, bd);
   }
 }
 

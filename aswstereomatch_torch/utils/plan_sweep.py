@@ -1,20 +1,25 @@
-"""Time K1 (``ops/cuda/asw_kernel.cu``), K2 (``ops/cuda/asw_sep_kernel.cu``)
-or K3 (``ops/cuda/asw_dlanes_kernel.cu``) under several tile plans on the
+"""Time K1 (``ops/cuda/asw_kernel.cu``), K2 (``ops/cuda/asw_sep_kernel.cu``),
+K3 (``ops/cuda/asw_dlanes_kernel.cu``) or K4
+(``ops/cuda/asw_sym_dlanes_kernel.cu``) under several tile plans on the
 card.
 
-    python -m aswstereomatch_torch.utils.plan_sweep [--kernel k1|k2|k3] [--reps 5]
+    python -m aswstereomatch_torch.utils.plan_sweep [--kernel k1|k2|k3|k4] [--reps 5]
+        [--geometry NAME ...] [--count 8] [--plan TY,TX,DC,KX ...]
 
 For each geometry (synthetic pairs at full width) it runs the kernel over
 pre-built channel stacks with its ``tile_plan``'s plan and with other plans
 that fit (K1: 1, 2, 4, ... rows up to the default's, and at least 4; K2:
 48, 64, 96 and 128 columns x d-chunks of 16, 32 and 64 at the most rows
 512 threads allow and half of them; K3: 1, 2, 4, ... rows at 32, 64 and
-128 columns), checks that each plan gives the default plan's six planes
-bit for bit, and prints the median ms per call (CUDA events, after one
-warm-up call).  Over the same stacks it also times K4
-(``asw_sym_dlanes_kernel``) where K1 runs symmetric ASW at D <= 128, and
-K1 where K3 runs.  It prints the card's name and power limit and ptxas'
-register and spill lines first.  Needs a CUDA device.
+128 columns; K4: the plans of least estimated work whose register tiles
+fill two or three consumer warpgroups, and the default plan with half its
+window-column run and with two d-chunks), checks that each plan gives the
+default plan's six planes bit for bit, and prints the median ms per call
+(CUDA events, after one warm-up call).  Over the same stacks it also times
+K4 where K1 runs symmetric ASW at D <= 128, and K1 where K3 or K4 runs
+(for K4 also whether K1's planes equal K4's bit for bit).  It prints the
+card's name and power limit and ptxas' register and spill lines first.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ GEOMETRIES = {
 K3_GEOMETRIES = {
     "kitti left-only": ("kitti_tiled", dict(asw_symmetric=False), 375, 1242),
     "kitti box": ("kitti_tiled", dict(aggregation="box"), 375, 1242),
+}
+
+K4_GEOMETRIES = {
+    "kitti 1242x375 D=128": ("kitti_tiled", dict(kernel_layout="dlanes"), 375, 1242),
+    "middlebury 450x375 D=64": ("middlebury_asw_full", dict(kernel_layout="dlanes"), 375, 450),
 }
 
 K2_GEOMETRIES = {
@@ -95,6 +105,31 @@ def k2_plans(H: int, W: int, D: int, r: int, sym: bool) -> list:
     return out
 
 
+def k4_plans(H: int, W: int, D: int, r: int, count: int = 8) -> list:
+    """K4's default plan; the ``count`` others of least estimated work whose
+    tiles fill two or three consumer warpgroups exactly, each with the
+    longest window-column run that fits; and the default plan with half its
+    run and with two d-chunks."""
+    k4 = asw_sym_dlanes_kernel
+    best = k4.tile_plan(H, W, D, r)
+    dc = best.dc
+    cands = []
+    for tx in range(8, 129, 8):
+        per_row = (tx // 8) * (dc // 4)
+        for tiles in (256, 384):
+            if tiles % per_row == 0 and tiles // per_row <= H:
+                p = k4.with_longest_run(k4.TilePlan(tiles // per_row, tx, dc, 2 * r + 1), D, r)
+                if p is not None and p != best:
+                    cands.append(p)
+    cands.sort(key=lambda p: p.cost(H, W, D, r))
+    out = [best] + cands[:count]
+    for p in (best._replace(kx=-(-best.kx // 2)),
+              k4.with_longest_run(best._replace(dc=-(-dc // 16) * 8, kx=2 * r + 1), D, r)):
+        if p is not None and p.fits(D, r) and p not in out:
+            out.append(p)
+    return out
+
+
 def plans(H: int, W: int, D: int, r: int, mode: int) -> list:
     """The default plan, then the others of ty in 1, 2, 4, ..."""
     best = asw_kernel.tile_plan(H, W, D, r, mode)
@@ -110,11 +145,16 @@ def plans(H: int, W: int, D: int, r: int, mode: int) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4"), default="k1")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--geometry", nargs="*")
+    ap.add_argument("--count", type=int, default=8,
+                    help="K4: how many plans of least estimated work beside the default")
+    ap.add_argument("--plan", action="append", default=[],
+                    help="K4: TY,TX,DC,KX, instead of the sweep's plans (repeatable)")
     args = ap.parse_args()
-    geometries = {"k1": GEOMETRIES, "k2": K2_GEOMETRIES, "k3": K3_GEOMETRIES}[args.kernel]
+    geometries = {"k1": GEOMETRIES, "k2": K2_GEOMETRIES, "k3": K3_GEOMETRIES,
+                  "k4": K4_GEOMETRIES}[args.kernel]
     names = args.geometry or list(geometries)
     if not torch.cuda.is_available():
         raise SystemExit("plan_sweep needs a CUDA device")
@@ -140,6 +180,20 @@ def main() -> int:
                          lambda plan: plan.smem_bytes(r, sym), ls, rs, cfg, args.reps,
                          lambda plan: plan.threads(r)):
                 return 1
+            continue
+        if args.kernel == "k4":
+            if not sweep(f"{name} on {card}: K4", asw_sym_dlanes_kernel,
+                         ([asw_sym_dlanes_kernel.TilePlan(*map(int, p.split(",")))
+                           for p in args.plan] or k4_plans(H, W, D, r, args.count)),
+                         lambda plan: plan.smem_bytes(D), ls, rs, cfg, args.reps):
+                return 1
+            cfg1 = cfg.replace(kernel_layout="xlanes")
+            k1 = asw_kernel.wta_outputs_from_stacks(ls, rs, cfg1)
+            k4 = asw_sym_dlanes_kernel.wta_outputs_from_stacks(ls, rs, cfg)
+            same = all(torch.equal(k1[k], k4[k]) for k in k4)
+            ms = median_ms(lambda: asw_kernel.wta_outputs_from_stacks(ls, rs, cfg1), args.reps)
+            print(f"{name} on {card}: K1 over the same stacks {ms:.3f} ms, "
+                  f"the same bits as K4: {same}", flush=True)
             continue
         if args.kernel == "k3":
             box = cfg.aggregation == "box"

@@ -15,8 +15,9 @@ line each per kernel or path; any failure exits non-zero:
                reference kernel tests' geometries (tests/test_pallas_kernel.py
                for K1, tests/test_pallas_dlanes.py for K2, K3 and K4, plus
                K3 at K = 65 and K4 at K = 63, their window bounds, and K3
-               at heights of several of its tile plan's rows, not a
-               multiple of them, left-only and box; K3's box bit for bit;
+               and K4 at heights of several of their tile plans' rows, not
+               a multiple of them (K3 left-only and box, K4 also at
+               D = 64); K3's box bit for bit;
                K2 the same, symmetric and left-only, over several row
                blocks, column tiles and d-chunks; K2's bfloat16 storage
                mode is held to its drift bar against float32); K1 also
@@ -30,7 +31,10 @@ line each per kernel or path; any failure exits non-zero:
                kitti_tiled's config in left-only ASW and in box (box bit
                for bit), K4 with
                kitti_tiled's config on kernel_layout="dlanes", all on a
-               1242x375 pair, D=128, r=16;
+               1242x375 pair, D=128, r=16, and K4 with
+               middlebury_asw_full's on "dlanes" at 450x375, D=64; K4
+               equals K1 over the same stacks bit for bit, all six planes,
+               at every K4 geometry (the small cases and both pairs);
   5. serve   — each path through StereoMatcher: middlebury_asw_full answers
                three uint8 requests and a batch of two, then kitti_tiled's
                config one 1242x375 D=128 pair (K1); kitti_sep three 1242x375
@@ -50,11 +54,11 @@ line each per kernel or path; any failure exits non-zero:
                plain_from_stacks_ms), and of the end-to-end call
                (e2e_ms): K1 at both ASW geometries and tsukuba_ad_box's
                box, K2 for both presets, K3
-               for left-only ASW and box and K4 at 1242x375; and K1 over
-               the stacks of K3's and K4's configs (kernel_layout="xlanes"),
-               so that each new kernel is timed against K1 on its function;
-               K2's and K3's tile plans, and K2's peak allocation of one
-               end-to-end call.
+               for left-only ASW and box and K4 at 1242x375 D=128 and
+               450x375 D=64; and K1 over the stacks of K3's and K4's
+               configs (kernel_layout="xlanes"), so that each new kernel is
+               timed against K1 on its function; K2's, K3's and K4's tile
+               plans, and K2's peak allocation of one end-to-end call.
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
@@ -178,6 +182,21 @@ SYM_DLANES_SMALL_CASES = [
     ("sdl_d128_multinb", dict(_SYMDL, max_disparity=128), (16, 192), dict(seed=3), 0.995),
     ("sdl_k63_boundary", dict(_SYMDL, max_disparity=16, window_radius=31), (10, 70),
      dict(seed=3), 0.995),
+    # Blocks of several output rows (tile plans (4, 72, 40, 11) and
+    # (6, 32, 64, 9)): H at least 3 x TY and not a multiple of it, so that
+    # whole multi-row blocks, a partial last block and the clamped rows are
+    # held; the second at D = 64, where one d-chunk fills every consumer
+    # thread (tests/test_torch_sym_dlanes_tile_plan.py checks these plans).
+    ("sdl_rows", dict(_SYMDL, max_disparity=40, window_radius=5), (29, 130), dict(seed=3),
+     0.995),
+    ("sdl_rows_d64", dict(_SYMDL, max_disparity=64, window_radius=4), (29, 150),
+     dict(seed=3), 0.995),
+]
+# K4's full-width pairs (phases 4 and 6): (name, preset, (H, W), make_pair seed),
+# each on kernel_layout="dlanes".
+K4_FULL_CASES = [
+    ("sdl_kitti", "kitti_tiled", (375, 1242), 31),
+    ("sdl_middlebury", "middlebury_asw_full", (375, 450), 11),
 ]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, the dense rates at
@@ -330,6 +349,23 @@ def _check_bits(name, got, ref, D) -> None:
         assert np.array_equal(a, b), f"{name} {k}: not bit for bit"
 
 
+def check_k4_bits(name, cfg, pair, device) -> None:
+    """K4 against K1 over the same channel stacks, all six planes bit for
+    bit: K4 computes K1's symmetric function with K1's arithmetic, term for
+    term, and each output sums its taps in the same (dy, dx) order.
+    Raises AssertionError."""
+    import torch
+
+    from aswstereomatch_torch.ops.cuda import asw_kernel, asw_sym_dlanes_kernel, common
+
+    ls, rs = common.stacks(torch.from_numpy(pair["left"]).to(device),
+                           torch.from_numpy(pair["right"]).to(device), cfg)
+    k4 = asw_sym_dlanes_kernel.wta_outputs_from_stacks(ls, rs, cfg)
+    k1 = asw_kernel.wta_outputs_from_stacks(ls, rs, cfg.replace(kernel_layout="xlanes"))
+    differ = [k for k in k4 if not torch.equal(k4[k], k1[k])]
+    assert not differ, f"{name}: K4 differs from K1 in {differ}"
+
+
 def check_sep_bf16(name, sym, device) -> dict:
     """K2's bfloat16 storage mode.  Against its own plain version at the
     f32 cases' bars (exact bestd / rbestd, bestc rtol 1e-4 / atol 1e-3):
@@ -422,7 +458,7 @@ def main() -> int:
     if Path(aswstereomatch_torch.__file__).resolve().parent.parent != HERE:
         fail(f"aswstereomatch_torch loaded from {aswstereomatch_torch.__file__}, "
              f"not from the checkout at {HERE}")
-    from aswstereomatch_torch.config import SEP_CONTRACT
+    from aswstereomatch_torch.config import SEP_CONTRACT, StereoConfig
     from aswstereomatch_torch.models import pipeline
     from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
                                                asw_sym_dlanes_kernel, build, common)
@@ -518,6 +554,25 @@ def main() -> int:
     full_width("K3 box 1242x375 D=128 r=16", cfg_box, pk, "asw_dlanes_kernel")
     sdl_err = full_width("K4 symmetric dlanes 1242x375 D=128 r=16", cfg_sdl, pk,
                          "asw_sym_dlanes_kernel")
+    cfg_sdl_m = cfg_m.replace(kernel_layout="dlanes")  # K4 at D = 64
+    full_width("K4 symmetric dlanes 450x375 D=64 r=16", cfg_sdl_m, pm, "asw_sym_dlanes_kernel")
+    # K4 against K1 bit for bit at every K4 geometry: the small cases and
+    # the full-width pairs (K4_FULL_CASES)
+    k4_pairs = []
+    for name, over, shape, kw, _ in SYM_DLANES_SMALL_CASES:
+        cfg = StereoConfig(**{**_BASE, **over})
+        k4_pairs.append((name, cfg, synthetic.make_pair(
+            height=shape[0], width=shape[1], max_disparity=cfg.max_disparity, **kw)))
+    k4_pairs += [(name, aswstereomatch_torch.get_preset(preset).replace(kernel_layout="dlanes"),
+                  {"kitti_tiled": pk, "middlebury_asw_full": pm}[preset])
+                 for name, preset, shape, seed in K4_FULL_CASES]
+    for name, cfg, pair in k4_pairs:
+        try:
+            check_k4_bits(name, cfg, pair, dev)
+        except AssertionError as e:
+            fail(f"full {e}")
+    print(f"full: K4 equals K1 over the same stacks bit for bit, all six planes, at "
+          f"{len(k4_pairs)} geometries ({', '.join(n for n, _, _ in k4_pairs)})", flush=True)
 
     # ---- 5. main paths: matchers serving requests -----------------------
     u8 = lambda a: a.astype(np.uint8)  # noqa: E731  (lossless: 8-bit grid)
@@ -569,10 +624,11 @@ def main() -> int:
     tsu = Matcher(cfg_tsu)
     seplo = Matcher.from_preset("kitti_seplo")
     lo, box, sdl = Matcher(cfg_lo), Matcher(cfg_box), Matcher(cfg_sdl)
+    sdl_m = Matcher(cfg_sdl_m)
     for m, want in ((matcher, asw_kernel), (kitti, asw_kernel), (tsu, asw_kernel),
                     (sep, asw_sep_kernel),
                     (seplo, asw_sep_kernel), (lo, asw_dlanes_kernel), (box, asw_dlanes_kernel),
-                    (sdl, asw_sym_dlanes_kernel)):
+                    (sdl, asw_sym_dlanes_kernel), (sdl_m, asw_sym_dlanes_kernel)):
         if (pipeline._resolve_backend(m.cfg, m.device) != "cuda"
                 or pipeline.kernel_for(m.cfg) is not want):
             fail(f"serve: {m.cfg} does not resolve to {want.__name__}")
@@ -653,7 +709,8 @@ def main() -> int:
             ("K2 kitti_seplo 1242x375", cfg_seplo, pk, seplo, 5, None),
             ("K3 left-only 1242x375", cfg_lo, pk, lo, 3, "asw_dlanes_kernel"),
             ("K3 box 1242x375", cfg_box, pk, box, 3, "asw_dlanes_kernel"),
-            ("K4 1242x375", cfg_sdl, pk, sdl, 3, "asw_sym_dlanes_kernel")):
+            ("K4 1242x375", cfg_sdl, pk, sdl, 3, "asw_sym_dlanes_kernel"),
+            ("K4 450x375", cfg_sdl_m, reqs[0], sdl_m, 3, "asw_sym_dlanes_kernel")):
         module = _kernel_module(cfg, kernel)
         l = torch.from_numpy(p["left"]).to(dev)
         r = torch.from_numpy(p["right"]).to(dev)
@@ -682,6 +739,9 @@ def main() -> int:
             t["plan"] = list(asw_dlanes_kernel.tile_plan(H, W, cfg.max_disparity,
                                                          cfg.window_radius,
                                                          cfg.aggregation == "box"))
+        if module is asw_sym_dlanes_kernel:
+            t["plan"] = list(asw_sym_dlanes_kernel.tile_plan(H, W, cfg.max_disparity,
+                                                             cfg.window_radius))
         if module is asw_sep_kernel:
             t["plan"] = list(asw_sep_kernel.tile_plan(H, W, cfg.max_disparity,
                                                       cfg.window_radius, cfg.asw_symmetric))
@@ -724,7 +784,7 @@ def main() -> int:
             dl_err, "K3 left-only 1242x375", box=times["K3 box 1242x375"]),
         row("asw_sym_dlanes_wta", "aswstereomatch_torch/ops/cuda/asw_sym_dlanes_kernel.cu",
             "aswstereomatch_tpu/ops/pallas/asw_sym_dlanes.py:122", sdl_launches,
-            sdl_err, "K4 1242x375"),
+            sdl_err, "K4 1242x375", middlebury=times["K4 450x375"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -152,6 +152,92 @@ def test_dlanes_kernel_refuses_a_plan_it_cannot_run():
 
 
 @pytest.mark.parametrize(
+    "overrides,shape,plan",
+    [(dict(max_disparity=40, window_radius=5), (29, 130), (1, 32, 24, 11)),
+     (dict(max_disparity=64, window_radius=4), (29, 150), (2, 16, 64, 9)),
+     (dict(max_disparity=128, window_radius=16), (20, 200), (1, 64, 128, 17)),
+     (dict(max_disparity=16, window_radius=31), (10, 70), (3, 24, 8, 7))],
+    ids=["d40_chunks", "d64", "d128_k33", "k63"],
+)
+def test_sym_dlanes_kernel_two_tile_plans_same_bits(overrides, shape, plan):
+    """One pair through K4's default tile plan and through another (other
+    rows, columns, runs of window columns, consumer warpgroups, and d-chunks
+    where the other plan's dc is below D), each passed to the launch: the
+    six planes are equal bit for bit, and equal K1's over the same stacks."""
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_kernel, asw_sym_dlanes_kernel, common
+    from aswstereomatch_torch.utils import synthetic
+
+    cfg = StereoConfig(**{**chip_smoke._BASE, "kernel_layout": "dlanes", **overrides})
+    D, r = cfg.max_disparity, cfg.window_radius
+    p = synthetic.make_pair(height=shape[0], width=shape[1], max_disparity=D, seed=9)
+    dev = torch.device("cuda", 0)
+    ls, rs = common.stacks(torch.from_numpy(p["left"]).to(dev),
+                           torch.from_numpy(p["right"]).to(dev), cfg)
+    default = asw_sym_dlanes_kernel.tile_plan(shape[0], shape[1], D, r)
+    other = asw_sym_dlanes_kernel.TilePlan(*plan)
+    assert other != default and other.fits(D, r)
+    a = asw_sym_dlanes_kernel.wta_outputs_from_stacks(ls, rs, cfg, default)
+    b = asw_sym_dlanes_kernel.wta_outputs_from_stacks(ls, rs, cfg, other)
+    k1 = asw_kernel.wta_outputs_from_stacks(ls, rs, cfg.replace(kernel_layout="xlanes"))
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+        assert torch.equal(a[k], k1[k]), k
+
+
+@pytest.mark.parametrize("D", [64, 2])
+@pytest.mark.parametrize("case", chip_smoke.SYM_DLANES_SMALL_CASES[:4],
+                         ids=[c[0] for c in chip_smoke.SYM_DLANES_SMALL_CASES[:4]])
+def test_sym_dlanes_kernel_at_d64_and_d2(case, D):
+    """K4 at D = 64 (one d-chunk filling every consumer thread) and D = 2
+    against its plain version on tests/test_pallas_dlanes.py:185-196's
+    geometries, at the reference's bars: argmin agreement > 99.5% in both
+    views (:211-218) and |delta d| > 2 on fewer than 0.5% of the pixels."""
+    import numpy as np
+
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_sym_dlanes_kernel
+    from aswstereomatch_torch.utils import synthetic
+
+    name, over, shape, pair_kw, bar = case
+    cfg = StereoConfig(**{**chip_smoke._BASE, **over, "max_disparity": D})
+    p = synthetic.make_pair(height=shape[0], width=shape[1], max_disparity=D, **pair_kw)
+    dev = torch.device("cuda", 0)
+    l, r = torch.from_numpy(p["left"]).to(dev), torch.from_numpy(p["right"]).to(dev)
+    before = _counts()
+    got = asw_sym_dlanes_kernel.wta_outputs(l, r, cfg)
+    assert _counts() == (before[0], before[1], before[2], before[3] + 1)
+    ref = asw_sym_dlanes_kernel.wta_outputs_reference(l, r, cfg)
+    for k in ("bestd", "rbestd"):
+        a, b = got[k].cpu().numpy(), ref[k].cpu().numpy()
+        assert np.mean(a == b) > bar, k
+        assert np.mean(np.abs(a - b) > 2) < 0.005, k
+    chip_smoke.check_floats_where_argmin_agrees(
+        {k: v.cpu().numpy() for k, v in got.items()},
+        {k: v.cpu().numpy() for k, v in ref.items()}, D)
+
+
+def test_sym_dlanes_kernel_refuses_a_plan_it_cannot_run():
+    """A plan over the consumer-thread limit, with a window-column run past
+    K, with columns not a multiple of 8, or over shared memory raises;
+    nothing runs."""
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_sym_dlanes_kernel, common
+
+    cfg = StereoConfig(**{**chip_smoke._BASE, "kernel_layout": "dlanes",
+                          "max_disparity": 128, "window_radius": 16})
+    z = torch.zeros((16, 64, 3), device="cuda")
+    ls, rs = common.stacks(z, z, cfg)
+    TP = asw_sym_dlanes_kernel.TilePlan
+    for plan in (TP(2, 64, 128, 33), TP(2, 48, 128, 34), TP(2, 44, 128, 33),
+                 TP(1, 96, 128, 33)):
+        assert not plan.fits(128, 16)
+        before = _counts()
+        with pytest.raises(RuntimeError, match="asw_sym_dlanes_wta launch failed"):
+            asw_sym_dlanes_kernel.wta_outputs_from_stacks(ls, rs, cfg, plan)
+        assert _counts() == before
+
+@pytest.mark.parametrize(
     "overrides",
     [dict(asw_symmetric=False), dict(asw_symmetric=False, uniqueness_ratio=8.0, fill_holes=False),
      dict(aggregation="box", window_radius=3, kernel_layout="dlanes"),
