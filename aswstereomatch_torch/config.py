@@ -78,7 +78,6 @@ class StereoConfig:
     asw_symmetric: bool = True         # two-view (wL*wR) vs left-only weights
     # Semi-global aggregation (4- or 8-path scanline propagation over the
     # raw cost volume, recurrence as pinned in the reference's config.py).
-    # Not ported yet: match_pair raises for aggregation="sgm".
     sgm_p1: float = 8.0                # small-slant penalty (|dd| = 1)
     sgm_p2: float = 32.0               # discontinuity penalty (|dd| > 1)
     sgm_paths: int = 4                 # 4 (axial) | 8 (+ diagonals)
@@ -97,7 +96,7 @@ class StereoConfig:
     median_filter: bool = True         # final 3x3 median
     median_mode: str = "plain"         # "plain" | "weighted"
     # ---- memory -------------------------------------------------------------
-    y_chunks: int = 1                  # >1: stream row bands (not ported yet)
+    y_chunks: int = 1                  # >1: stream row bands (eager path)
     volume_dtype: str = "float32"      # separable kernel's cost storage
     # ---- parallelism (read only by the reference's parallel/) ---------------
     mesh_data: int = 1                 # chips along the batch ("data") axis

@@ -22,8 +22,11 @@ Backends:
   - "auto":  "cuda" for CUDA tensors when a kernel serves the config,
              "eager" otherwise.
 
-Not ported yet (raise NotImplementedError): SGM, y_chunks streaming, the
-confidence surface.
+SGM (``aggregation="sgm"``) runs on the eager backend: its aggregation
+stage is the hand-written scan kernel (ops/cuda/sgm_kernel) on a CUDA
+tensor.  ``y_chunks > 1`` streams row bands on the eager path
+(``match_pair_chunked``); ``match_pair_with_confidence`` returns the
+disparity with the uniqueness margin and the LR mask.
 """
 
 from __future__ import annotations
@@ -188,17 +191,122 @@ def _postprocess_from_wta(
     return disp.to(torch.float32)
 
 
+def tile_disparity(
+    left_ext: torch.Tensor,
+    right_ext: torch.Tensor,
+    cfg: StereoConfig,
+    halo: int,
+    rows: int,
+    true_h: int,
+    start: int,
+) -> torch.Tensor:
+    """Disparity for one row band given halo-extended image tiles:
+    left_ext / right_ext (halo + rows + halo, W[, 3]) -> (rows, W).
+
+    Routes through the kernel when ``_resolve_backend`` picks one (each
+    pixel's kernel result does not depend on its position, so only the
+    trimmed halo rows see the band's edge).  The band's 3x3 median takes
+    its rows by global-row-clamped index, so rows at the image's true top
+    and bottom reproduce the unbanded edge clamp: banded == unbanded bit
+    for bit hinges on it."""
+    if _resolve_backend(cfg, left_ext.device) == "cuda":
+        disp = _disp_pre_from_wta(_kernel_wta(left_ext, right_ext, cfg), cfg)
+    else:
+        disp = disp_pre_from_volume(aggregated_volume(left_ext, right_ext, cfg), cfg)
+    if not cfg.median_filter:
+        return disp[halo : halo + rows]
+    g = torch.arange(start - 1, start + rows + 1, device=disp.device).clamp(0, true_h - 1)
+    local = (g - (start - halo)).clamp(0, disp.shape[0] - 1)  # global rows +-1
+    guide = _guide_lab(left_ext.index_select(0, local), cfg)
+    return postprocess.median_filter(disp.index_select(0, local), cfg, guide)[1 : 1 + rows]
+
+
+def match_pair_chunked(left: torch.Tensor, right: torch.Tensor,
+                       cfg: StereoConfig) -> torch.Tensor:
+    """Memory-streaming mode: ``cfg.y_chunks`` row bands one after another,
+    each written into the (H, W) output before the next is built, so only
+    one band's volume is alive at a time.  Bit for bit the unchunked
+    pipeline.  SGM propagates along whole scanlines and is refused."""
+    if cfg.aggregation == "sgm":
+        raise ValueError(
+            "aggregation='sgm' propagates globally along scanlines; "
+            "y_chunks row streaming cannot reproduce the unchunked result"
+        )
+    h, w = left.shape[:2]
+    n = cfg.y_chunks
+    halo = cfg.halo_y
+    pad = (-h) % n
+    lp = preprocess.pad_edge(left, 0, 0, pad)
+    rp = preprocess.pad_edge(right, 0, 0, pad)
+    rows = lp.shape[0] // n
+    if rows < halo:
+        raise ValueError(f"{rows} rows/chunk < halo {halo}; reduce y_chunks")
+    lp = preprocess.pad_edge(lp, 0, halo, halo)
+    rp = preprocess.pad_edge(rp, 0, halo, halo)
+    out = torch.empty((n * rows, w), dtype=torch.float32, device=left.device)
+    for i in range(n):
+        start = i * rows
+        band = slice(start, start + rows + 2 * halo)
+        out[start : start + rows] = tile_disparity(lp[band], rp[band], cfg, halo, rows, h, start)
+    return out[:h]
+
+
 def match_pair(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
     """Match one rectified pair of float32 (H, W[, 3]) images -> float32
-    (H, W) disparity, on the images' device."""
+    (H, W) disparity, on the images' device.  The kernel path never
+    materializes the volume and ignores ``y_chunks``, as the reference's
+    does."""
     backend = _resolve_backend(cfg, left.device)
     if backend == "cuda":
         outs = _kernel_wta(left, right, cfg)
         return _postprocess_from_wta(outs, cfg, left)
     if cfg.y_chunks > 1:
-        raise NotImplementedError("y_chunks > 1 row streaming is not ported yet")
+        return match_pair_chunked(left, right, cfg)
     vol = aggregated_volume(left, right, cfg)
     return _postprocess_from_volume(vol, cfg, left)
+
+
+def match_pair_with_confidence(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig):
+    """Match one pair and return ``(disp, uniq_pct, lr_valid)``:
+
+      - ``disp``: ``match_pair``'s disparity, every configured gate applied;
+      - ``uniq_pct``: the WTA-uniqueness margin ``(second / best - 1) * 100``,
+        ``second`` the best aggregated cost over d outside [best-1, best+1],
+        clipped to [0, 1e6]; 1e6 where no such d exists and where
+        best == 0 (the gate ``second * 100 >= best * (100 + r)`` accepts
+        such a pixel at every ratio).  ``lr_valid & (uniq_pct >= r)``
+        reproduces the ``uniqueness_ratio=r`` gate, up to f32 division
+        rounding on exact knife-edge ties;
+      - ``lr_valid``: the LR-consistency mask (all True when ``lr_check`` is
+        off).
+
+    On the kernel path the operands are the kernel's planes; the eager
+    path refuses ``y_chunks > 1`` rather than build the whole volume a
+    chunked config exists to avoid."""
+    if _resolve_backend(cfg, left.device) == "cuda":
+        outs = _kernel_wta(left, right, cfg)
+        disp = _postprocess_from_wta(outs, cfg, left)
+        bestc, second, disp_i, rbest = outs["bestc"], outs["ubest"], outs["bestd"], outs["rbestd"]
+    else:
+        if cfg.y_chunks > 1:
+            raise ValueError(
+                "match_pair_with_confidence does not support y_chunks > 1 "
+                "on the eager path; use y_chunks=1 (or a kernel-backed config)"
+            )
+        vol = aggregated_volume(left, right, cfg)
+        disp = _postprocess_from_volume(vol, cfg, left)
+        disp_i = wta.wta(vol)
+        bestc = torch.gather(vol, -1, disp_i.to(torch.int64)[..., None])[..., 0]
+        second = wta.second_best_excl_neighbors(vol, disp_i)
+        rbest = wta.wta(postprocess.right_volume(vol)) if cfg.lr_check else None
+    pos = bestc > 0.0
+    margin = torch.clamp((second / torch.where(pos, bestc, 1.0) - 1.0) * 100.0, 0.0, 1e6)
+    uniq_pct = torch.where(pos, margin, torch.full_like(margin, 1e6))
+    if cfg.lr_check:
+        lr_valid = postprocess.lr_check(disp_i, rbest, cfg)
+    else:
+        lr_valid = torch.ones(disp_i.shape, dtype=torch.bool, device=disp_i.device)
+    return disp, uniq_pct, lr_valid
 
 
 def match_batch(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:

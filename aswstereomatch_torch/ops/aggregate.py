@@ -15,13 +15,16 @@ aggregators, under the pinned virtual padded-plane border semantics
     mode (``asw_separable``): a vertical bilateral pass over the x-extended
     cost, then a horizontal one, with the right-view factor in both passes
     in symmetric mode.
+  - ``aggregate_sgm``: semi-global scanline aggregation of the raw cost
+    volume (``ops/cuda/sgm_kernel``: its CUDA kernel on the card, its plain
+    version on the CPU).
 
-These materialize weight planes ((H, W, K^2) for the exact window, about
-2 GB each at KITTI geometry, r=16; (H, W, K) for the separable passes) and
-the (H, W, D) output volume: they are the readable references the CUDA
-kernels (ops/cuda/asw_kernel, asw_sep_kernel, asw_dlanes_kernel,
-asw_sym_dlanes_kernel) are tested against,
-not the main path on the card.  SGM is not ported yet.
+The window aggregators materialize weight planes ((H, W, K^2) for the exact
+window, about 2 GB each at KITTI geometry, r=16; (H, W, K) for the
+separable passes) and the (H, W, D) output volume: they are the readable
+references the CUDA kernels (ops/cuda/asw_kernel, asw_sep_kernel,
+asw_dlanes_kernel, asw_sym_dlanes_kernel) are tested against, not the main
+path on the card.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..config import StereoConfig
 from ..utils.convert import axial_weights_np, spatial_weights_np
 from . import cost as cost_ops
 from . import preprocess
+from .cuda import sgm_kernel
 
 
 def _patches_2d(arr: torch.Tensor, radius: int, x_valid: bool = False) -> torch.Tensor:
@@ -50,6 +54,22 @@ def _patches_2d(arr: torch.Tensor, radius: int, x_valid: bool = False) -> torch.
     w_out = pad.shape[1] - 2 * radius
     # (H, W_out, k_wy, k_wx) view -> contiguous (H, W_out, O)
     return pad.unfold(0, k, 1).unfold(1, k, 1).reshape(h, w_out, k * k)
+
+
+def _window_sum(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Sum of the last axis of (..., k * k) window taps, in an order that
+    does not depend on where a pixel's taps lie in memory.
+
+    PyTorch's CUDA reduction reads a row of 128 or more values with 16-byte
+    loads, starting with the few values before the row's first aligned
+    address, so its order follows the row's address: a band of rows
+    (``y_chunks``) would sum some pixels in another order than the whole
+    image.  Rows shorter than 128 are summed in one fixed order, so a
+    window of 128 taps or more is summed as k rows of dx taps (k < 128, r
+    <= 63), then over dy."""
+    if k * k < 128:
+        return x.sum(dim=-1)
+    return x.unflatten(-1, (k, k)).sum(dim=-1).sum(dim=-1)
 
 
 def bilateral_planes_from_lab(lab_ext: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
@@ -210,6 +230,7 @@ def aggregate_asw_from_stacks(
         return aggregate_asw_separable_from_stacks(l_stack_ext, r_stack_ext, cfg)
     r = cfg.window_radius
     D = cfg.max_disparity
+    k = cfg.window_size
     w = l_stack_ext.shape[2] - 2 * r
 
     planes = cost_ops.planes_from_stacks(l_stack_ext, r_stack_ext, r)
@@ -219,7 +240,7 @@ def aggregate_asw_from_stacks(
         # the window starting at (D-1) - d.
         wr = bilateral_planes_from_lab(torch.movedim(r_stack_ext[4:7], 0, -1), cfg)
     else:
-        den_left = wl.sum(dim=-1)
+        den_left = _window_sum(wl, k)
 
     out = []
     for d in range(D):
@@ -228,11 +249,11 @@ def aggregate_asw_from_stacks(
         if cfg.asw_symmetric:
             start = (D - 1) - d
             wgt = wl * wr[:, start : start + w]
-            num = taps.mul_(wgt).sum(dim=-1)
-            den = wgt.sum(dim=-1)
+            num = _window_sum(taps.mul_(wgt), k)
+            den = _window_sum(wgt, k)
             del wgt
         else:
-            num = taps.mul_(wl).sum(dim=-1)
+            num = _window_sum(taps.mul_(wl), k)
             den = den_left
         del taps
         out.append((num / den).to(torch.float32))
@@ -258,6 +279,13 @@ def aggregate_asw(
     )
 
 
+def aggregate_sgm(vol: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+    """Semi-global aggregation of a raw (H, W, D) cost volume, 4 or 8
+    paths summed in the pinned order (``sgm_kernel``: the kernel for a CUDA
+    tensor, the plain version for a CPU one)."""
+    return sgm_kernel.aggregate(vol, cfg)
+
+
 def aggregated_volume(
     left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
 ) -> torch.Tensor:
@@ -268,5 +296,5 @@ def aggregated_volume(
         vol_ext = cost_ops.cost_volume(left, right, cfg, x_extend=cfg.window_radius)
         return aggregate_box(vol_ext, cfg)
     if cfg.aggregation == "sgm":
-        raise NotImplementedError("aggregation='sgm' is not ported yet")
+        return aggregate_sgm(cost_ops.cost_volume(left, right, cfg), cfg)
     return cost_ops.cost_volume(left, right, cfg)

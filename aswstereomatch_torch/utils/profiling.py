@@ -3,7 +3,7 @@ kernel, device idle share and peak memory for the main path.
 
     python -m aswstereomatch_torch.utils.profiling
         [--geometry middlebury kitti kitti_sep kitti_seplo kitti_lo kitti_box
-                    kitti_dlanes] [--pairs 3] [--out DIR]
+                    kitti_dlanes kitti_sgm] [--pairs 3] [--out DIR]
 
 For each geometry it builds the preset's ``StereoMatcher`` (with the
 geometry's overrides) on cuda:0, makes
@@ -49,6 +49,8 @@ GEOMETRIES = {
     "kitti_lo": ("kitti_tiled", {"asw_symmetric": False}, 375, 1242),
     "kitti_box": ("kitti_tiled", {"aggregation": "box"}, 375, 1242),
     "kitti_dlanes": ("kitti_tiled", {"kernel_layout": "dlanes"}, 375, 1242),
+    # semi-global aggregation: the raw cost volume, then the SGM scan kernel
+    "kitti_sgm": ("kitti_sgm", {}, 375, 1242),
 }
 
 

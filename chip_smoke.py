@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Four kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
+Five kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
 the separable-ASW kernel (ops/cuda/asw_sep_kernel.cu); K3, the d-lanes
 kernel for left-only ASW and box (ops/cuda/asw_dlanes_kernel.cu); K4, the
-symmetric d-lanes kernel (ops/cuda/asw_sym_dlanes_kernel.cu).  Phases, one
-line each per kernel or path; any failure exits non-zero:
+symmetric d-lanes kernel (ops/cuda/asw_sym_dlanes_kernel.cu); SGM, the
+semi-global scan kernel (ops/cuda/sgm_kernel.cu).  Phases, one line each
+per kernel or path; any failure exits non-zero:
 
   1. device  — refuses to run without CUDA; prints the card's name and
                power limit (nvidia-smi) and the torch / CUDA versions;
@@ -23,7 +24,9 @@ line each per kernel or path; any failure exits non-zero:
                mode is held to its drift bar against float32); K1 also
                past its old easy shapes: D = 160 (more than one d-chunk)
                in each mode, r = 32, H and W not multiples of its tile
-               plan, D = 1;
+               plan, D = 1; SGM bit for bit over SGM_SMALL_CASES (H = 1,
+               W = 1, D from 1 to 256 and 6200, zero and other penalties,
+               4 and 8 paths);
   4. full    — the same comparison at full width: K1 on a synthetic 450x375
                pair, D=64, r=16, on kitti_tiled's config at 1242x375,
                D=128, and in box mode at tsukuba_ad_box's 384x288, D=16,
@@ -34,7 +37,9 @@ line each per kernel or path; any failure exits non-zero:
                1242x375 pair, D=128, r=16, and K4 with
                middlebury_asw_full's on "dlanes" at 450x375, D=64; K4
                equals K1 over the same stacks bit for bit, all six planes,
-               at every K4 geometry (the small cases and both pairs);
+               at every K4 geometry (the small cases and both pairs); SGM
+               bit for bit over the port's raw cost volume of the 1242x375
+               pair (kitti_sgm, D=128), 4 and 8 paths;
   5. serve   — each path through StereoMatcher: middlebury_asw_full answers
                three uint8 requests and a batch of two, then kitti_tiled's
                config one 1242x375 D=128 pair (K1); kitti_sep three 1242x375
@@ -46,7 +51,18 @@ line each per kernel or path; any failure exits non-zero:
                reset just before each path and read just after it: every
                kernel of the path must have launched (K1 6, K2 6, K3 5 + 1,
                K4 1 times) and no other.  A "dlanes" config no d-lanes
-               kernel supports (D = 256) must raise;
+               kernel supports (D = 256) must raise.  kitti_sgm three
+               requests and a batch of two, and one 8-path pair (SGM 6),
+               bad-2.0 < 5%, each map equal bit for bit to the same
+               pipeline with the plain SGM.  The confidence surface at
+               middlebury_asw_full (K1), kitti_sep (K2) and kitti_sgm
+               (SGM): disp equals match_pair's bit for bit, and
+               lr_valid & (uniq_pct >= r) reproduces the
+               uniqueness_ratio=r gate (fill and median off) for r = 5,
+               15 but for at most 0.01% of pixels.  y_chunks: eager
+               kitti_tiled at 1242x375 in 4 bands equals one band bit for
+               bit (peak allocations printed), K1 with y_chunks=3 equals
+               y_chunks=1;
   6. times   — median ms per pair (CUDA events) of each kernel's wrapper
                and of its plain version, with the channel stacks built
                inside (ms, plain_ms) and over the
@@ -58,11 +74,14 @@ line each per kernel or path; any failure exits non-zero:
                450x375 D=64; and K1 over the stacks of K3's and K4's
                configs (kernel_layout="xlanes"), so that each new kernel is
                timed against K1 on its function; K2's, K3's and K4's tile
-               plans, and K2's peak allocation of one end-to-end call.
+               plans, and K2's peak allocation of one end-to-end call;
+               the SGM kernel and its plain version over kitti_sgm's raw
+               cost volume (4 and 8 paths), that volume's build, and
+               kitti_sgm end to end with its peak allocation.
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
-k1_bound / k2_bound / box_bound); the last line is
+k1_bound / k2_bound / box_bound / sgm_bound); the last line is
 {"ok": true, "device": {...}}.  Imports torch, numpy and the port only (no
 jax).
 """
@@ -199,6 +218,27 @@ K4_FULL_CASES = [
     ("sdl_middlebury", "middlebury_asw_full", (375, 450), 11),
 ]
 
+# The SGM kernel's phase-3 geometries: (name, (H, W, D), paths, P1, P2) over
+# a random cost volume.  Lines of one pixel (H = 1, W = 1), D = 1 and 2 (no
+# or one d-neighbour), D past one chunk of 32 lanes (33) and past the four
+# register-prefetched chunks (129, 256), other and zero penalties, and
+# D = 6200, whose two L rows outgrow a warp's shared memory and go to the
+# global scratch buffer.
+SGM_SMALL_CASES = [
+    ("sgm_h1", (1, 40, 16), 8, 8.0, 32.0),
+    ("sgm_w1", (40, 1, 16), 8, 8.0, 32.0),
+    ("sgm_1x1", (1, 1, 5), 8, 8.0, 32.0),
+    ("sgm_d1", (17, 23, 1), 8, 8.0, 32.0),
+    ("sgm_d2", (17, 23, 2), 4, 3.0, 50.0),
+    ("sgm_d33", (21, 30, 33), 8, 8.0, 32.0),
+    ("sgm_d129", (12, 40, 129), 8, 3.0, 50.0),
+    ("sgm_d256_4", (9, 31, 256), 4, 0.0, 0.0),
+    ("sgm_d256_8", (9, 31, 256), 8, 8.0, 32.0),
+    ("sgm_zero_pen", (20, 28, 12), 8, 0.0, 0.0),
+    ("sgm_tall", (50, 7, 40), 4, 3.0, 50.0),
+    ("sgm_scratch_d6200", (3, 5, 6200), 8, 8.0, 32.0),
+]
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet, the dense rates at
 # the 700 W limit): FP32 outside the tensor cores, HBM3.  The special
 # function units (exp2, rsqrt) return 16 results per clock per SM against
@@ -271,6 +311,39 @@ def box_bound(H: int, W: int, cfg) -> tuple:
     flops = 4 * H * W * D + 12 * H * (W + 2 * r) * D
     nbytes = 4 * (7 * H * (W + 2 * r) + 7 * H * (W + 2 * r + D - 1) + 6 * H * W)
     return _bound(flops, 0.0, nbytes)
+
+
+def sgm_bound(H: int, W: int, cfg) -> tuple:
+    """SGM's function at its least work: bytes, one read of the raw (H, W,
+    D) cost volume and one write of S, 2 x 4 H W D (the kernel's one pass
+    per direction moves 3 P - 1 volumes for P paths).  Operations: per
+    (pixel, d, path) two adds of a penalty, three mins, the add and the
+    subtract of the step and the add into S, 8 FP32 operations."""
+    assert cfg.aggregation == "sgm", "the bound counts SGM work"
+    n = H * W * cfg.max_disparity
+    return _bound(8.0 * n * cfg.sgm_paths, 0.0, 2 * 4 * n)
+
+
+def check_sgm(name, shape, paths, p1, p2, device) -> None:
+    """The SGM kernel against its plain version on a random (H, W, D) cost
+    volume, bit for bit (both take the reference's adds and mins in its
+    order).  Raises AssertionError."""
+    import torch
+
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import sgm_kernel
+
+    H, W, D = shape
+    cfg = StereoConfig(aggregation="sgm", max_disparity=D, sgm_paths=paths,
+                       sgm_p1=p1, sgm_p2=p2)
+    rng = np.random.default_rng(H * 1000 + W + D)
+    vol = torch.from_numpy((rng.random(shape) * 40.0).astype(np.float32)).to(device)
+    got = sgm_kernel.aggregate(vol, cfg)
+    ref = sgm_kernel.aggregate_reference(vol, cfg)
+    assert got.shape == ref.shape and torch.isfinite(got).all(), f"{name}: bad output"
+    assert torch.equal(got, ref), (
+        f"{name}: differs from the plain version on {int((got != ref).sum())} of "
+        f"{ref.numel()} values, max |diff| {float((got - ref).abs().max())}")
 
 
 def fail(msg: str) -> None:
@@ -460,8 +533,11 @@ def main() -> int:
              f"not from the checkout at {HERE}")
     from aswstereomatch_torch.config import SEP_CONTRACT, StereoConfig
     from aswstereomatch_torch.models import pipeline
+    from aswstereomatch_torch.ops import aggregate
+    from aswstereomatch_torch.ops import cost as cost_ops
     from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
-                                               asw_sym_dlanes_kernel, build, common)
+                                               asw_sym_dlanes_kernel, build, common,
+                                               sgm_kernel)
     from aswstereomatch_torch.utils import evaluate, synthetic
 
     # ---- 1. device ------------------------------------------------------
@@ -506,6 +582,13 @@ def main() -> int:
                 except AssertionError as e:
                     fail(f"{label} {name}: {e}")
         print(f"{label}: " + ", ".join(f"{s['case']} ok" for s in small), flush=True)
+    for case in SGM_SMALL_CASES:
+        try:
+            check_sgm(*case, device=dev)
+        except AssertionError as e:
+            fail(f"small SGM {case[0]}: {e}")
+    print("small SGM: " + ", ".join(f"{c[0]} ok" for c in SGM_SMALL_CASES)
+          + " (kernel equals plain bit for bit)", flush=True)
 
     # ---- 4. kernel vs plain at full width -------------------------------
     def full_width(label, cfg, pair, kernel=None):
@@ -573,6 +656,22 @@ def main() -> int:
             fail(f"full {e}")
     print(f"full: K4 equals K1 over the same stacks bit for bit, all six planes, at "
           f"{len(k4_pairs)} geometries ({', '.join(n for n, _, _ in k4_pairs)})", flush=True)
+    # SGM on the port's raw cost volume of the 1242x375 pair, 4 and 8 paths
+    cfg_sgm = aswstereomatch_torch.get_preset("kitti_sgm")
+    lk = torch.from_numpy(pk["left"]).to(dev)
+    rk = torch.from_numpy(pk["right"]).to(dev)
+    vol_k = cost_ops.cost_volume(lk, rk, cfg_sgm)
+    sgm_err = 0.0
+    for paths in (4, 8):
+        c = cfg_sgm.replace(sgm_paths=paths)
+        got = sgm_kernel.aggregate(vol_k, c)
+        ref = sgm_kernel.aggregate_reference(vol_k, c)
+        if not (torch.isfinite(got).all() and torch.equal(got, ref)):
+            fail(f"full: SGM kitti_sgm {paths} paths differs from its plain version on "
+                 f"{int((got != ref).sum())} of {ref.numel()} values")
+        sgm_err = max(sgm_err, float((got - ref).abs().max()))
+    print("full: SGM kitti_sgm 1242x375 D=128, 4 and 8 paths: kernel equals plain bit for "
+          "bit", flush=True)
 
     # ---- 5. main paths: matchers serving requests -----------------------
     u8 = lambda a: a.astype(np.uint8)  # noqa: E731  (lossless: 8-bit grid)
@@ -600,7 +699,7 @@ def main() -> int:
         return disps
 
     kernels = {"K1": asw_kernel, "K2": asw_sep_kernel, "K3": asw_dlanes_kernel,
-               "K4": asw_sym_dlanes_kernel}
+               "K4": asw_sym_dlanes_kernel, "SGM": sgm_kernel}
 
     def reset():
         torch.cuda.synchronize()
@@ -699,6 +798,104 @@ def main() -> int:
           f"K4 launches {sdl_launches}, other kernels 0; dlanes D=256 raised: {refused}",
           flush=True)
 
+    # SGM's path: kitti_sgm requests and a batch of two, one 8-path pair;
+    # the raw cost volume is plain PyTorch, its aggregation the SGM kernel
+    sgm_m = Matcher.from_preset("kitti_sgm")
+    sgm8 = Matcher.from_preset("kitti_sgm", sgm_paths=8)
+    for m in (sgm_m, sgm8):
+        if (pipeline._resolve_backend(m.cfg, m.device) != "eager"
+                or pipeline.kernel_for(m.cfg) is not None):
+            fail(f"serve: {m.cfg} does not resolve to the eager path and its SGM kernel")
+    reset()
+    dsg = serve(sgm_m, reqs_k, 2)
+    dsg8 = serve(sgm8, [pk], 0)[0]
+    sgm_launches = launched("SGM's path", {"SGM": 6})
+    bads_g = [check_map("kitti_sgm", d, p, 128, 0.05) for p, d in zip(reqs_k, dsg)]
+    bad_g8 = check_map("kitti_sgm 8 paths", dsg8, pk, 128, 0.05)
+    # the same pipeline with the plain SGM on the card: the same map, bit for bit
+    kernel_aggregate = sgm_kernel.aggregate
+    sgm_kernel.aggregate = sgm_kernel.aggregate_reference
+    reset()
+    try:
+        plain_maps = [m(u8(pk["left"]), u8(pk["right"])).cpu().numpy() for m in (sgm_m, sgm8)]
+    finally:
+        sgm_kernel.aggregate = kernel_aggregate
+    launched("the plain SGM pipeline", {})
+    for paths, got, want in ((4, dsg[0], plain_maps[0]), (8, dsg8, plain_maps[1])):
+        if not np.array_equal(got, want):
+            fail(f"serve: kitti_sgm {paths} paths differs from the plain-SGM pipeline on "
+                 f"{int((got != want).sum())} pixels")
+    print(f"serve SGM: 3 requests kitti_sgm 1242x375 D=128 bad_2 "
+          f"{[round(b, 6) for b in bads_g]}, batch of 2 == singles, 8 paths bad_2 "
+          f"{bad_g8:.6f}, density 1.0; maps equal the plain-SGM pipeline's bit for bit "
+          f"(4 and 8 paths); SGM launches {sgm_launches} (5 + 1), other kernels 0",
+          flush=True)
+
+    # The confidence surface on each kind of path: its disp is match_pair's,
+    # and lr_valid & (uniq_pct >= r) reproduces the uniqueness_ratio=r gate
+    # (fill and median off, which would move the rejected pixels)
+    for label, cfg, p, key in (("middlebury_asw_full 450x375 D=64", cfg_m, reqs[0], "K1"),
+                               ("kitti_sep 1242x375 D=128", cfg_sep, pk, "K2"),
+                               ("kitti_sgm 1242x375 D=128", cfg_sgm, pk, "SGM")):
+        l = torch.from_numpy(p["left"]).to(dev)
+        r = torch.from_numpy(p["right"]).to(dev)
+        reset()
+        disp, uniq, lrv = pipeline.match_pair_with_confidence(l, r, cfg)
+        same = torch.equal(disp, pipeline.match_pair(l, r, cfg))
+        worst = 0
+        for ratio in (5.0, 15.0):
+            gated = pipeline.match_pair(l, r, cfg.replace(uniqueness_ratio=ratio,
+                                                          fill_holes=False, median_filter=False))
+            worst = max(worst, int(((lrv & (uniq >= ratio)) != (gated >= 0)).sum()))
+        launched(f"confidence {label}", {key: 4})
+        bar = int(1e-4 * disp.numel())
+        if not (same and uniq.dtype == torch.float32 and lrv.dtype == torch.bool
+                and bool(((uniq >= 0) & (uniq <= 1e6)).all()) and worst <= bar):
+            fail(f"confidence {label}: disp == match_pair {same}, gate disagreements {worst} "
+                 f"(bar {bar})")
+        print(f"confidence {label} ({key}): disp equals match_pair bit for bit; the gate at "
+              f"r = 5 and 15 reproduced but for at most {worst} pixels (bar {bar}); "
+              f"lr_valid share {float(lrv.float().mean()):.4f}", flush=True)
+
+    # y_chunks row streaming at full width: eager kitti_tiled in 4 bands equals
+    # the unbanded run bit for bit; the kernel path ignores y_chunks
+    cfg_e = kitti_cfg.replace(backend="eager")
+    maps, peaks, walls = {}, {}, {}
+    reset()
+    for n in (1, 4):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        maps[n] = pipeline.match_pair(lk, rk, cfg_e.replace(y_chunks=n))
+        torch.cuda.synchronize()
+        walls[n] = time.perf_counter() - t0
+        peaks[n] = (torch.cuda.max_memory_allocated() - held) / 2**20
+    launched("eager kitti_tiled", {})
+    if not torch.equal(maps[1], maps[4]):
+        fail(f"y_chunks: eager kitti_tiled in 4 bands differs from one on "
+             f"{int((maps[1] != maps[4]).sum())} pixels")
+    bad_e = check_map("eager kitti_tiled", maps[1].cpu().numpy(), pk, 128)
+    # Why the eager window sums take a fixed order: rows of 1089 taps moved
+    # by one row (4 bytes off their 16-byte alignment), summed again
+    taps = torch.rand(4000, 1089, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    moved = torch.cat([taps[:1], taps])[1:]
+    plain_moved = int((moved.sum(-1) != taps.sum(-1)).sum())
+    fixed_moved = int((aggregate._window_sum(moved, 33)
+                       != aggregate._window_sum(taps, 33)).sum())
+    if fixed_moved:
+        fail(f"y_chunks: the fixed-order window sum moved with its rows on {fixed_moved} rows")
+    reset()
+    dk3 = Matcher(kitti_cfg.replace(y_chunks=3))(u8(pk["left"]), u8(pk["right"])).cpu().numpy()
+    launched("kitti_tiled with y_chunks=3", {"K1": 1})
+    if not np.array_equal(dk3, dk):
+        fail("y_chunks: kitti_tiled on K1 with y_chunks=3 differs from y_chunks=1")
+    print(f"y_chunks: eager kitti_tiled 1242x375 D=128, 4 bands == 1 band bit for bit "
+          f"(bad_2 {bad_e:.5f}); peak allocation {peaks[1]:.1f} MiB in one band, "
+          f"{peaks[4]:.1f} MiB in 4; {walls[1]:.2f} / {walls[4]:.2f} s; K1 with y_chunks=3 "
+          f"== y_chunks=1; rows of 1089 taps moved by 4 bytes: a plain sum changes on "
+          f"{plain_moved} of 4000, the fixed-order window sum on {fixed_moved}", flush=True)
+
     # ---- 6. times -------------------------------------------------------
     times = {}
     for geo, cfg, p, m, reps, kernel in (
@@ -766,6 +963,32 @@ def main() -> int:
               + (f"; peak allocation of a call {t['peak_alloc_mib']:.3f} MiB"
                  if "peak_alloc_mib" in t else ""), flush=True)
 
+    # SGM: the kernel over the raw cost volume, 4 and 8 paths; the raw cost
+    # volume (the Python loop over d, ops/cost.py) and kitti_sgm end to end
+    for paths in (4, 8):
+        c = cfg_sgm.replace(sgm_paths=paths)
+        bound_ms, bound_by = sgm_bound(375, 1242, c)
+        t = times[f"SGM kitti_sgm {paths} paths"] = {
+            "ms": _median_ms(lambda: sgm_kernel.aggregate(vol_k, c), 10),
+            "plain_ms": _median_ms(lambda: sgm_kernel.aggregate_reference(vol_k, c), 2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        m = sgm_m if paths == 4 else sgm8
+        lu, ru = u8(pk["left"]), u8(pk["right"])
+        t["e2e_ms"] = _median_ms(lambda: m(lu, ru), 3)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m(lu, ru)
+        torch.cuda.synchronize()
+        t["peak_alloc_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        t["cost_volume_ms"] = _median_ms(lambda: cost_ops.cost_volume(lk, rk, c), 5)
+        print(f"times SGM kitti_sgm 1242x375 D=128 {paths} paths on {card}: kernel "
+              f"{t['ms']:.3f} ms (bound {bound_ms:.4f} ms by {bound_by}, "
+              f"{100 * bound_ms / t['ms']:.1f}%); plain {t['plain_ms']:.3f} ms; raw cost "
+              f"volume {t['cost_volume_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair; "
+              f"peak allocation of a call {t['peak_alloc_mib']:.3f} MiB", flush=True)
+
     def row(name, source, replaces, launches, err, geo, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, **times[geo],
@@ -785,6 +1008,9 @@ def main() -> int:
         row("asw_sym_dlanes_wta", "aswstereomatch_torch/ops/cuda/asw_sym_dlanes_kernel.cu",
             "aswstereomatch_tpu/ops/pallas/asw_sym_dlanes.py:122", sdl_launches,
             sdl_err, "K4 1242x375", middlebury=times["K4 450x375"]),
+        row("sgm_aggregate", "aswstereomatch_torch/ops/cuda/sgm_kernel.cu",
+            "aswstereomatch_tpu/ops/aggregate.py:335", sgm_launches, sgm_err,
+            "SGM kitti_sgm 4 paths", eight_paths=times["SGM kitti_sgm 8 paths"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -213,14 +213,6 @@ def test_preset_matcher_on_cpu_matches_jnp():
         assert_agree(d_t, d_j)
 
 
-def test_not_ported_paths_raise(small_pair):
-    l, r = T(small_pair["left"]), T(small_pair["right"])
-    with pytest.raises(NotImplementedError, match="y_chunks"):
-        pipeline.match_pair(l, r, port(CFG_TAD).replace(y_chunks=2))
-    with pytest.raises(NotImplementedError, match="sgm"):
-        pipeline.match_pair(l, r, asm.get_preset("kitti_sgm"))
-
-
 def test_profiling_busy_time_is_the_union_of_device_intervals():
     from aswstereomatch_torch.utils import profiling
 

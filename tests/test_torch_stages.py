@@ -167,9 +167,15 @@ def test_bilateral_planes_match_jnp(small_pair):
 
 
 def test_not_ported_aggregations_raise(tiny_pair):
+    """Every aggregation is ported now (SGM raised here until it was): SGM's
+    volume is the semi-global aggregation of the raw cost volume, as the
+    reference composes it (tests/test_torch_sgm.py holds it to the
+    reference bit for bit)."""
     l, r = T(tiny_pair["left"]), T(tiny_pair["right"])
-    with pytest.raises(NotImplementedError):
-        aggregate.aggregated_volume(l, r, port(CFG_TAD.replace(aggregation="sgm")))
+    cfg_sgm = port(CFG_TAD.replace(aggregation="sgm"))
+    vol_sgm = aggregate.aggregated_volume(l, r, cfg_sgm)
+    assert torch.equal(vol_sgm, aggregate.aggregate_sgm(cost.cost_volume(l, r, cfg_sgm), cfg_sgm))
+    assert vol_sgm.shape == tiny_pair["left"].shape[:2] + (cfg_sgm.max_disparity,)
     # separable ASW is ported: the volume of its own function
     # (tests/test_torch_sep_aggregate.py holds it to the reference)
     cfg = port(CFG_TAD.replace(asw_separable=True))
