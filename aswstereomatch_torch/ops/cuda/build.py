@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -146,19 +147,23 @@ def library_path() -> Path:
 
 
 _loaded: Path | None = None
+_load_lock = threading.Lock()
 
 
 def load() -> Path:
-    """Build (if needed) and load the kernels' library once per process."""
+    """Build (if needed) and load the kernels' library once per process.
+    Threads that call it together (a daemon's first requests) wait for one
+    build instead of each compiling the library."""
     global _loaded
-    if _loaded is None:
-        lib = library_path()
-        try:
-            torch.ops.load_library(str(lib))
-        except OSError as e:
-            raise BuildError(f"loading {lib} failed: {e}") from e
-        _loaded = lib
-    return _loaded
+    with _load_lock:
+        if _loaded is None:
+            lib = library_path()
+            try:
+                torch.ops.load_library(str(lib))
+            except OSError as e:
+                raise BuildError(f"loading {lib} failed: {e}") from e
+            _loaded = lib
+        return _loaded
 
 
 def build_log() -> str:

@@ -22,15 +22,21 @@ then
 Prints the card's name and power limit (nvidia-smi), then one JSON object
 per geometry; with ``--out``, also writes the profiler's ``key_averages``
 table there.  Needs a CUDA device.
+
+The CLI's helpers live here too: ``force_sync`` (wait for the card),
+``trace`` (a ``torch.profiler`` Chrome trace) and ``time_fn``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -52,6 +58,52 @@ GEOMETRIES = {
     # semi-global aggregation: the raw cost volume, then the SGM scan kernel
     "kitti_sgm": ("kitti_sgm", {}, 375, 1242),
 }
+
+
+def force_sync(out) -> None:
+    """Wait for the card to finish the work behind ``out`` (a tensor, or a
+    tuple / list / dict of them); nothing to wait for on the CPU."""
+    if isinstance(out, dict):
+        out = list(out.values())
+    leaves = out if isinstance(out, (tuple, list)) else [out]
+    for leaf in leaves:
+        if isinstance(leaf, (tuple, list, dict)):
+            force_sync(leaf)
+        elif isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
+            torch.cuda.synchronize(leaf.device)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """A ``torch.profiler`` window that writes ``trace.json`` (Chrome trace
+    format, with the card's kernels when CUDA is available) into
+    ``log_dir``; does nothing when ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 2):
+    """``(best_s, mean_s, out)``: host wall time of ``fn(*args)``, each call
+    ending when the card has finished it (``force_sync``); ``out`` is the
+    last call's result."""
+    for _ in range(warmup):
+        force_sync(fn(*args))
+    times = []
+    out = None
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        force_sync(out)
+        times.append(time.perf_counter() - t0)
+    return min(times), float(np.mean(times)), out
 
 
 def _device_intervals(prof) -> list:

@@ -1,9 +1,10 @@
 """Synthetic rectified stereo pairs with exact ground-truth disparity.
 
-NumPy copies of ``aswstereomatch_tpu.utils.synthetic.make_pair`` and
-``make_hard_pair`` (that package cannot be imported without jax); the tests
-(tests/test_torch_config.py, tests/test_torch_sep_pipeline.py) hold each
-copy byte-equal to the reference.  A textured background plane plus textured foreground
+NumPy copies of ``aswstereomatch_tpu.utils.synthetic.make_pair``,
+``make_hard_pair``, ``make_slanted_pair`` and ``make_dataset_pair`` with its
+``GEOMETRIES`` (that package cannot be imported without jax); the tests
+(tests/test_torch_config.py, tests/test_torch_sep_pipeline.py,
+tests/test_torch_host_io.py) hold each copy byte-equal to the reference.  A textured background plane plus textured foreground
 rectangles, each at a constant (optionally fractional) disparity; both views
 are rendered from the same layer stack, so ground truth, occlusion masks and
 left/right consistency are exact by construction.
@@ -174,6 +175,45 @@ def make_pair(
     }
 
 
+def make_slanted_pair(
+    height: int = 96,
+    width: int = 128,
+    max_disparity: int = 16,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Stereo pair over a slanted textured plane: disparity varies linearly
+    across the image (d = a(y) + b*x), exercising subpixel interpolation and
+    smoothness-sensitive stages far harder than constant-d layers.
+
+    Ground truth is exact; the right view is rendered by linear resampling
+    of a wide canvas, then quantized to the 8-bit grid.
+    """
+    rng = np.random.default_rng(seed)
+    d_lo = max_disparity * 0.15
+    d_hi = max_disparity * 0.80
+    # plane d(x, y) = a(y) + bx*x, kept inside [0, D-1] by construction
+    bx = rng.uniform(0.3, 1.0) * (d_hi - d_lo) / (2 * width)
+    by = rng.uniform(-0.3, 0.3) * (d_hi - d_lo) / (2 * height)
+    y = np.arange(height)[:, None].astype(np.float64)
+    x = np.arange(width)[None, :].astype(np.float64)
+    a_row = d_lo + by * (y - height / 2)  # (H, 1)
+    gt = (a_row + bx * x).astype(np.float32)
+    assert gt.min() >= 0 and gt.max() <= max_disparity - 1
+
+    canvas = _texture(rng, height, width + max_disparity + 2, octaves=5)
+    left = canvas[:, :width]
+    # exact correspondence: right pixel u shows scene at the left pixel x(u)
+    # solving x - d(x, y) = u  =>  x = (u + a(y)) / (1 - bx)
+    xs = ((x + a_row) / (1.0 - bx)).astype(np.float32)
+    right = np.round(_sample_x(canvas, xs))
+    return {
+        "left": np.round(left).astype(np.float32),
+        "right": right.astype(np.float32),
+        "gt": gt,
+        "occluded": np.zeros((height, width), bool),
+    }
+
+
 def make_hard_pair(
     height: int = 96,
     width: int = 160,
@@ -206,3 +246,25 @@ def make_hard_pair(
     pair["left"] = np.round(np.clip(left, 0, 255)).astype(np.float32)
     pair["right"] = np.round(np.clip(right, 0, 255)).astype(np.float32)
     return pair
+
+
+# Geometry presets mirroring the BASELINE configs' datasets: (H, W, D).
+GEOMETRIES = {
+    "tsukuba": (288, 384, 16),
+    "venus": (375, 450, 64),
+    "teddy": (375, 450, 64),
+    "cones": (375, 450, 64),
+    "kitti": (375, 1242, 128),
+}
+
+
+# Same-geometry dataset names get distinct scene content (teddy/cones share
+# venus's 450x375 D=64 geometry but must not be the identical image pair).
+_SCENE_SEED_OFFSET = {"teddy": 1009, "cones": 2003}
+
+
+def make_dataset_pair(name: str, seed: int = 0, **kw) -> Dict[str, np.ndarray]:
+    """``make_pair`` at the named dataset's geometry (``GEOMETRIES``)."""
+    h, w, d = GEOMETRIES[name.lower()]
+    seed = seed + _SCENE_SEED_OFFSET.get(name.lower(), 0)
+    return make_pair(height=h, width=w, max_disparity=d, seed=seed, **kw)

@@ -77,7 +77,23 @@ per kernel or path; any failure exits non-zero:
                plans, and K2's peak allocation of one end-to-end call;
                the SGM kernel and its plain version over kitti_sgm's raw
                cost volume (4 and 8 paths), that volume's build, and
-               kitti_sgm end to end with its peak allocation.
+               kitti_sgm end to end with its peak allocation;
+  7. entry   — the user's entry points at 1242x375 D=128, launch counts
+               read around each: whether the native codec built (the
+               compiler's words if not); ``python -m
+               aswstereomatch_torch.tools.serve --device cuda`` in a child
+               process answers three kitti_sep requests (the third
+               uint16_x256), kitti_tiled with the confidence planes and
+               kitti_sgm, each equal bit for bit to the same request run
+               here, refuses a wrong config keeping the connection and a
+               malformed header dropping it, and is stopped; the time of a
+               kitti_sep request's layers here (H2D, enqueue, pipeline,
+               encode, D2H); ``aswstereomatch_torch.cli.main`` on a
+               synthetic KITTI pair with kitti_tiled (K1 5) and its
+               left-only weights (K3 5), bad-2.0 < 5%, the PNG read back;
+               ``tools.sweep`` over 4 pairs (K2 4), resumed after two lost
+               records (K2 2), and one pair fetched in f32 within 1/512 px
+               of u16.
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
@@ -89,6 +105,7 @@ jax).
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -518,6 +535,281 @@ def _median_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# ---- 7. the entry points: serve, CLI, sweep (each path read on its own) ----
+ENTRY_H, ENTRY_W, ENTRY_D = 375, 1242, 128
+
+
+def _client_round(sock, pair, config, **kw):
+    """One request through the daemon: (answer, client round trip in ms)."""
+    from aswstereomatch_torch.tools import serve
+
+    t0 = time.perf_counter()
+    got = serve.send_request(sock, pair["left"].astype(np.uint8),
+                             pair["right"].astype(np.uint8), config, dtype="uint8", **kw)
+    return got, (time.perf_counter() - t0) * 1e3
+
+
+def serve_phase(card: str, dev, reset, launched) -> None:
+    """``python -m aswstereomatch_torch.tools.serve --device cuda`` in a child
+    process, on a free port: kitti_sep three times (K2; the third answer
+    uint16_x256), kitti_tiled with the confidence planes (K1), a wrong config
+    (an error; the connection stays), kitti_sgm (SGM) on the same
+    connection, and a malformed header on another (an error; dropped).  Each
+    answer must equal, bit for bit, the same request run here through
+    ``StereoMatcher`` / ``match_pair_with_confidence`` (whose launches are
+    counted), and the daemon must have mapped the kernels' library.  The
+    daemon is stopped (and its device lock released) before this returns."""
+    import socket
+    import struct
+    import tempfile
+
+    import torch
+
+    import aswstereomatch_torch
+    from aswstereomatch_torch.models import pipeline
+    from aswstereomatch_torch.tools import serve
+    from aswstereomatch_torch.utils import synthetic
+
+    pk = synthetic.make_pair(height=ENTRY_H, width=ENTRY_W, max_disparity=ENTRY_D, seed=51)
+    u8 = {s: torch.from_numpy(pk[s].astype(np.uint8)).to(dev) for s in ("left", "right")}
+    get = aswstereomatch_torch.get_preset
+    sep, tiled, sgm = get("kitti_sep"), get("kitti_tiled"), get("kitti_sgm")
+
+    # what each answer must be: the same requests run in this process
+    reset()
+    want_sep = aswstereomatch_torch.StereoMatcher(sep)(u8["left"], u8["right"]).cpu().numpy()
+    conf = [t.cpu().numpy() for t in pipeline.match_pair_with_confidence(
+        u8["left"].float(), u8["right"].float(), tiled)]
+    want_sgm = aswstereomatch_torch.StereoMatcher(sgm)(u8["left"], u8["right"]).cpu().numpy()
+    n_here = launched("serve's requests run here", {"K1": 1, "K2": 1, "SGM": 1})
+    want_u16 = np.clip(np.round(want_sep * 256.0), 0, 65535).astype(np.uint16)
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    log = open(Path(logdir) / "serve.log", "w")
+    env = dict(os.environ, PYTHONPATH=str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aswstereomatch_torch.tools.serve", "--device", "cuda",
+         "--port", "0"], cwd=HERE, stdout=log, stderr=subprocess.STDOUT, env=env)
+    rows = []
+    try:
+        port = serve.wait_for_port(log.name, proc, timeout_s=120)
+        with socket.create_connection(("127.0.0.1", port), timeout=300) as sock:
+            for i in range(3):
+                kw = {"response_dtype": "uint16_x256"} if i == 2 else {}
+                (d, h), ms = _client_round(sock, pk, {"preset": "kitti_sep"}, **kw)
+                want = want_u16.astype(np.float32) / 256.0 if i == 2 else want_sep
+                if h["dtype"] != kw.get("response_dtype", "float32") or not np.array_equal(d, want):
+                    fail(f"serve: kitti_sep request {i + 1} ({h['dtype']}) differs from "
+                         f"StereoMatcher's map on {int((d != want).sum())} pixels")
+                rows.append((f"kitti_sep {h['dtype']}", h["elapsed_ms"], ms))
+            (d, h, uniq, lrv), ms = _client_round(sock, pk, {"preset": "kitti_tiled"},
+                                                  confidence=True)
+            for name, got, want in (("disp", d, conf[0]), ("uniq_pct", uniq, conf[1]),
+                                    ("lr_valid", lrv, conf[2])):
+                if not np.array_equal(got, want):
+                    fail(f"serve: kitti_tiled confidence {name} differs from "
+                         f"match_pair_with_confidence's on {int((got != want).sum())} pixels")
+            rows.append(("kitti_tiled confidence", h["elapsed_ms"], ms))
+            try:
+                _client_round(sock, pk, {"preset": "kitti_sep", "aggregation": "bogus"})
+                fail("serve: a wrong config got an answer")
+            except RuntimeError as e:
+                refused = str(e)
+            (d, h), ms = _client_round(sock, pk, {"preset": "kitti_sgm"})
+            if not np.array_equal(d, want_sgm):
+                fail(f"serve: kitti_sgm after the refused config differs from "
+                     f"StereoMatcher's map on {int((d != want_sgm).sum())} pixels")
+            rows.append(("kitti_sgm (same connection, after the error)", h["elapsed_ms"], ms))
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+            sock.sendall(struct.pack("<I", 8) + b"notjson!")
+            rlen = struct.unpack("<I", serve._recv_exact(sock, 4))[0]
+            answer = json.loads(serve._recv_exact(sock, rlen))
+            dropped = sock.recv(1) == b""
+        if answer.get("status") != "error" or not dropped:
+            fail(f"serve: malformed header answered {answer}, connection dropped {dropped}")
+        maps = Path(f"/proc/{proc.pid}/maps").read_text()
+        if "libasw_torch.so" not in maps:
+            fail("serve: the daemon never loaded the kernels' library")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+    print(f"serve entry point on {card}: daemon answers equal the in-process matcher bit for "
+          f"bit (kitti_sep f32 x2 and uint16_x256 == this script's encoding, K2; kitti_tiled "
+          f"disp / uniq_pct / lr_valid == match_pair_with_confidence, K1; kitti_sgm, SGM; "
+          f"{n_here} launches here for the comparison); the daemon loaded libasw_torch.so; "
+          f"wrong config answered '{refused}' and kept the connection; malformed header "
+          f"answered '{answer['message']}' and dropped it; daemon stopped (exit "
+          f"{proc.returncode})", flush=True)
+    for label, server_ms, client_ms in rows:
+        print(f"serve {ENTRY_W}x{ENTRY_H} D={ENTRY_D} uint8 wire, {label}: server elapsed_ms "
+              f"{server_ms}, client round trip {client_ms:.2f} ms on {card}", flush=True)
+
+
+def serve_layers(card: str, dev) -> None:
+    """Where a kitti_sep request's server time goes, in this process on the
+    same uint8 pair: host-to-device copy of both images, the host time to
+    enqueue the pipeline (no sync: near the pipeline's device time only if
+    something in it waits for the card), the pipeline on the card, the u16
+    encode, and the device-to-host copy of the f32 and the u16 map."""
+    import torch
+
+    import aswstereomatch_torch
+    from aswstereomatch_torch.tools import serve
+    from aswstereomatch_torch.utils import synthetic
+
+    pk = synthetic.make_pair(height=ENTRY_H, width=ENTRY_W, max_disparity=ENTRY_D, seed=51)
+    lu, ru = (torch.from_numpy(pk[s].astype(np.uint8)) for s in ("left", "right"))
+    m = aswstereomatch_torch.StereoMatcher.from_preset("kitti_sep")
+    l, r = lu.to(dev), ru.to(dev)
+    d = m(l, r)
+    du = serve.encode_u16(d)
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m(l, r)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t = {
+        "h2d_ms": _median_ms(lambda: (lu.to(dev), ru.to(dev)), 5),
+        "enqueue_ms": float(np.median(enqueue)),
+        "pipeline_ms": _median_ms(lambda: m(l, r), 5),
+        "encode_u16_ms": _median_ms(lambda: serve.encode_u16(d), 5),
+        "d2h_f32_ms": _median_ms(lambda: d.cpu(), 5),
+        "d2h_u16_ms": _median_ms(lambda: du.cpu(), 5),
+    }
+    print(f"serve layers kitti_sep {ENTRY_W}x{ENTRY_H} D={ENTRY_D} uint8 on {card} (CUDA-event "
+          f"medians; enqueue on the host clock): " + json.dumps(t), flush=True)
+
+
+def cli_phase(card: str, reset, launched) -> None:
+    """``aswstereomatch_torch.cli.main`` in this process on a synthetic
+    KITTI pair: kitti_tiled (K1: the first call, one warm-up, three timed)
+    and its left-only weights (K3), each read alone; bad-2.0 under 5%, the
+    disparity PNG read back through the port's io when the codec built."""
+    import contextlib
+    import io as stdio
+    import tempfile
+    import warnings
+
+    from aswstereomatch_torch import cli
+    from aswstereomatch_torch.utils import io, native
+
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    for label, extra, key in (("kitti_tiled", [], "K1"),
+                              ("kitti_tiled --left-only-weights", ["--left-only-weights"], "K3")):
+        args = ["--synthetic", "kitti", "--preset", "kitti_tiled", "--iters", "3",
+                "--json", str(out / "run.json"), "--out", str(out / "disp.png"), *extra]
+        reset()
+        with warnings.catch_warnings(record=True) as caught, \
+                contextlib.redirect_stdout(stdio.StringIO()):
+            warnings.simplefilter("always")
+            rc = cli.main(args)
+        n = launched(f"cli {label}", {key: 5})
+        rec = json.loads((out / "run.json").read_text())
+        if rc != 0 or not rec["metrics"]["bad_2"] < 0.05 or rec["shape"] != [ENTRY_H, ENTRY_W]:
+            fail(f"cli {label}: exit {rc}, record {rec.get('metrics')} {rec.get('shape')}")
+        png = "not read back (native codec unavailable: PGM written)"
+        if native.available():
+            img = io.read_image(str(out / "disp.png"))
+            if img.shape != (ENTRY_H, ENTRY_W):
+                fail(f"cli {label}: disparity PNG reads back as {img.shape}")
+            png = f"PNG reads back {img.shape}"
+        mesh = "; ".join(str(w.message) for w in caught if "mesh" in str(w.message))
+        print(f"cli entry point on {card}: {label} exit 0, bad_2 {rec['metrics']['bad_2']}, "
+              f"compile_s {rec['compile_s']}, best_s {rec['best_s']}, pairs_per_s "
+              f"{rec['pairs_per_s']}, device {rec['device']}; {key} launches {n}, other "
+              f"kernels 0; {png}; {mesh or 'no mesh warning'}", flush=True)
+
+
+def sweep_phase(card: str, reset, launched) -> None:
+    """``make_synthetic_dataset`` (4 KITTI pairs) and
+    ``aswstereomatch_torch.tools.sweep.main`` with kitti_sep, u16 fetch (K2
+    4 times); two manifest records and their maps removed and the sweep run
+    again (K2 exactly twice; both maps written again; 4 pairs in the
+    summary); one pair with the f32 fetch within 1/512 px of the u16 map."""
+    import contextlib
+    import io as stdio
+    import shutil
+    import tempfile
+
+    from aswstereomatch_torch.tools import sweep
+    from aswstereomatch_torch.utils import io, native
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+    d = root / "u16"
+    sweep.make_synthetic_dataset(str(d), 4, ENTRY_H, ENTRY_W, ENTRY_D)
+
+    def run(dir_, *extra):
+        buf = stdio.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = sweep.main(["--dir", str(dir_), "--preset", "kitti_sep", *extra])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"sweep: exit {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1]), wall
+
+    reset()
+    summary, wall = run(d, "--fetch", "u16")
+    launched("sweep, 4 pairs", {"K2": 4})
+    if summary["pairs"] != 4:
+        fail(f"sweep: summary {summary}")
+    mpath = d / "sweep_manifest.json"
+    man = json.loads(mpath.read_text())
+    lost = sorted(man["done"])[2:]
+    for pid in lost:
+        del man["done"][pid]
+        (d / f"{pid}_disp.pfm").unlink()
+    mpath.write_text(json.dumps(man))
+    reset()
+    summary2, wall2 = run(d, "--fetch", "u16")
+    launched("sweep resume", {"K2": 2})
+    if summary2["pairs"] != 4 or not all((d / f"{p}_disp.pfm").exists() for p in lost):
+        fail(f"sweep: resume summary {summary2}, maps rewritten "
+             f"{[(d / f'{p}_disp.pfm').exists() for p in lost]}")
+    d32 = root / "f32"
+    d32.mkdir()
+    for suffix in ("_left.ppm", "_right.ppm", "_gt.pfm"):
+        shutil.copy(d / f"pair0000{suffix}", d32 / f"pair0000{suffix}")
+    reset()
+    run(d32, "--fetch", "f32")
+    launched("sweep f32 fetch", {"K2": 1})
+    a = io.read_pfm(str(d / "pair0000_disp.pfm"))
+    b = io.read_pfm(str(d32 / "pair0000_disp.pfm"))
+    worst = float(np.max(np.abs(a - b)[b >= 0]))
+    if not worst <= 1 / 512 + 1e-6:
+        fail(f"sweep: u16 and f32 maps differ by {worst} px")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"sweep entry point on {card}: kitti_sep {ENTRY_W}x{ENTRY_H} D={ENTRY_D}, 4 pairs in "
+          f"{wall:.3f} s ({4 / wall:.3f} pairs/s, sweep.main's wall time), "
+          f"mean_bad_2 {summary['mean_bad_2']}; resume after 2 lost records: K2 launches 2, "
+          f"both maps rewritten, {summary2['pairs']} pairs in {wall2:.3f} s; u16 vs f32 fetch "
+          f"max |diff| {worst:.6f} px (<= 1/512); native PNM reader "
+          f"{'used' if native.available() else 'unavailable (pure-Python reader)'}",
+          flush=True)
+
+
+def entry_points(card: str, dev, reset, launched) -> None:
+    """Phase 7: the native codec, then serve, CLI and sweep (the daemon is
+    stopped before the sweep takes the device lock)."""
+    from aswstereomatch_torch.utils import native
+
+    if native.available():
+        print("native codec: built from native/stereoio.cpp", flush=True)
+    else:
+        print(f"native codec: not built: {native.build_error()}", flush=True)
+    serve_phase(card, dev, reset, launched)
+    serve_layers(card, dev)
+    cli_phase(card, reset, launched)
+    sweep_phase(card, reset, launched)
 
 
 def main() -> int:
@@ -988,6 +1280,9 @@ def main() -> int:
               f"{100 * bound_ms / t['ms']:.1f}%); plain {t['plain_ms']:.3f} ms; raw cost "
               f"volume {t['cost_volume_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair; "
               f"peak allocation of a call {t['peak_alloc_mib']:.3f} MiB", flush=True)
+
+    # ---- 7. the entry points: serve, CLI, sweep -------------------------
+    entry_points(card, dev, reset, launched)
 
     def row(name, source, replaces, launches, err, geo, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
