@@ -12,6 +12,13 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# PyTorch's CPU sqrt, exp and log call MKL's vector math.  When the first
+# such call in a process runs on several threads at once, one thread's share
+# of it can come out ~1e-4 off (relative), so the eager path and the plain
+# kernel versions would not repeat their own bits (tests/test_torch_cpu_math.py).
+# One call on one thread first initialises it.
+torch.ones(1).sqrt()
+
 from .config import PRESETS, StereoConfig, get_preset  # noqa: E402,F401
 from .models.pipeline import StereoMatcher, match_batch, match_pair  # noqa: E402,F401
 

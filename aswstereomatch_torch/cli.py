@@ -14,9 +14,14 @@ Examples:
   python -m aswstereomatch_torch.cli --synthetic venus --preset middlebury_asw \\
       --profile trace_dir
   python -m aswstereomatch_torch.cli --synthetic tsukuba --device cpu
+  python -m aswstereomatch_torch.cli --synthetic kitti --preset kitti_tiled \\
+      --mesh 1x4 --shard-axis x            # four cards: columns over 4 shards
 
 It runs on the card (``--device cuda``, the default) and raises without
-one; ``--device cpu`` runs the plain PyTorch path on the CPU.
+one; ``--device cpu`` runs the plain PyTorch path on the CPU.  A ``--mesh``
+(or a preset's mesh) that fits the visible cards runs the sharded layout
+(``parallel.api.sharded_match_fn``); one that needs more warns and runs
+unsharded.
 """
 
 from __future__ import annotations
@@ -26,13 +31,13 @@ import dataclasses
 import json
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
 
 from .config import StereoConfig, get_preset
 from .models.pipeline import StereoMatcher
+from .parallel import api as parallel_api, mesh
 from .utils import evaluate, io, profiling, synthetic
 
 
@@ -79,9 +84,8 @@ def build_parser():
                      help="where the pair runs: the card (default; raises "
                           "without one) or the CPU's plain PyTorch path")
     run.add_argument("--mesh", default=None,
-                     help="DATAxTILE device mesh, e.g. 1x4 (the multi-card "
-                          "layouts are not ported: a mesh that needs more "
-                          "devices than are visible runs unsharded)")
+                     help="DATAxTILE device mesh, e.g. 1x4 (a mesh that needs "
+                          "more devices than are visible runs unsharded)")
     run.add_argument("--shard-axis", default="y", choices=["y", "x", "d"],
                      help="what the mesh 'tile' axis shards: image rows (y), "
                           "image columns (x), or the disparity axis (d)")
@@ -94,25 +98,9 @@ def build_parser():
     return ap
 
 
-def visible_devices(device: str) -> int:
-    """Devices a mesh could span: the visible cards, or 1 on the CPU."""
-    return torch.cuda.device_count() if device == "cuda" else 1
-
-
-def layout_fits(cfg, visible: int) -> bool:
-    """True iff ``cfg`` declares a > 1-device mesh that fits ``visible``
-    devices (the reference's ``parallel.api.layout_fits``); a mesh that
-    needs more devices than are visible warns and runs unsharded."""
-    need = cfg.mesh_data * cfg.mesh_tile
-    if need <= 1:
-        return False
-    if need > visible:
-        warnings.warn(
-            f"config declares a {cfg.mesh_data}x{cfg.mesh_tile} mesh but only "
-            f"{visible} device(s) are visible; running unsharded"
-        )
-        return False
-    return True
+def visible_devices(device: str) -> list:
+    """Devices a mesh could span: the visible cards, or the CPU."""
+    return mesh.visible_cards() if device == "cuda" else [torch.device("cpu")]
 
 
 def _device_input(a: np.ndarray) -> np.ndarray:
@@ -173,24 +161,24 @@ def main(argv=None):
 
     # ---- run ----------------------------------------------------------------
     matcher = StereoMatcher(cfg, device=args.device)
-    if layout_fits(cfg, visible_devices(args.device)):
-        # The multi-card layouts (the reference's parallel/) are not ported:
-        # refuse rather than run a layout this program does not have.
-        print(f"a {cfg.mesh_data}x{cfg.mesh_tile} mesh fits the "
-              f"{visible_devices(args.device)} visible devices, but the port has no "
-              "sharded path yet (ROADMAP.md, section 1: parallel/)", file=sys.stderr)
-        return 2
+    devices = visible_devices(args.device)
+    fn = matcher
+    if parallel_api.layout_fits(cfg, devices):
+        # The declared layout over the visible devices; its functions take
+        # float32 images (the matcher widens uint8 itself).
+        sharded = parallel_api.sharded_match_fn(cfg, devices)
+        fn = lambda l, r: sharded(l.to(torch.float32), r.to(torch.float32))  # noqa: E731
     dev = matcher.device
     t0 = time.perf_counter()
     l_dev = torch.from_numpy(_device_input(left)).to(dev)
     r_dev = torch.from_numpy(_device_input(right)).to(dev)
-    disp = matcher(l_dev, r_dev)  # the first call builds or loads the kernels
+    disp = fn(l_dev, r_dev)  # the first call builds or loads the kernels
     profiling.force_sync(disp)
     compile_s = time.perf_counter() - t0
 
     with profiling.trace(args.profile):
         best_s, mean_s, disp = profiling.time_fn(
-            matcher, l_dev, r_dev, iters=max(args.iters, 1), warmup=1
+            fn, l_dev, r_dev, iters=max(args.iters, 1), warmup=1
         )
     disp = disp.cpu().numpy()
 

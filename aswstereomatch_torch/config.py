@@ -58,9 +58,10 @@ from typing import Tuple
 class StereoConfig:
     """Frozen parameter block for one stereo-matching run.
 
-    Field for field the reference's ``StereoConfig``.  The mesh / tiling /
-    kernel-layout fields are carried so configs round-trip; the port's
-    ``match_pair`` reads none of them yet.
+    Field for field the reference's ``StereoConfig``.  ``match_pair`` runs
+    one pair on one device; the mesh fields (``mesh_data``, ``mesh_tile``,
+    ``tile_axis``) are read by ``parallel/`` (``parallel.api`` and the CLI's
+    ``--mesh``).
     """
 
     # ---- geometry -----------------------------------------------------------
@@ -98,7 +99,7 @@ class StereoConfig:
     # ---- memory -------------------------------------------------------------
     y_chunks: int = 1                  # >1: stream row bands (eager path)
     volume_dtype: str = "float32"      # separable kernel's cost storage
-    # ---- parallelism (read only by the reference's parallel/) ---------------
+    # ---- parallelism (read by parallel/: parallel.api, the CLI's --mesh) ----
     mesh_data: int = 1                 # chips along the batch ("data") axis
     mesh_tile: int = 1                 # chips along the spatial ("tile") axis
     tile_axis: str = "y"               # what "tile" shards: "y" | "x" | "d"
@@ -227,8 +228,8 @@ PRESETS = {
         subpixel=True,
         median_filter=True,
     ),
-    # KITTI (1242x375, D=128); mesh_tile is read only by the reference's
-    # spatial tiling, so per pair this is exact symmetric ASW.
+    # KITTI (1242x375, D=128), exact symmetric ASW; mesh_tile declares the
+    # 4-shard y-tiled layout parallel.api runs where four devices fit.
     "kitti_tiled": StereoConfig(
         max_disparity=128,
         cost="tad_grad",

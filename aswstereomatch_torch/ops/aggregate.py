@@ -72,6 +72,27 @@ def _window_sum(x: torch.Tensor, k: int) -> torch.Tensor:
     return x.unflatten(-1, (k, k)).sum(dim=-1).sum(dim=-1)
 
 
+def _tap_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of the last axis (a 1-D window's K taps) as a fixed pairwise
+    tree of elementwise adds: each level adds the upper half of the taps
+    onto the lower half and, for an odd count, the last tap onto the first.
+    An elementwise add gives each pixel the same bits whatever the layout,
+    the pixel's place or the thread that computes it.  A plain ``sum(-1)``
+    does not: the separable passes' (H, W, K) products lie K-major in
+    memory, and PyTorch's CPU sum reduces the pixels at the end of each
+    chunk it vectorises in another order than the rest, so a band of
+    columns (x-tiling) or another thread count would change the last bits.
+    ceil(log2 K) levels, each reading the taps left once."""
+    k = x.shape[-1]
+    while k > 1:
+        half = k // 2
+        acc = x[..., :half] + x[..., half:2 * half]
+        if k % 2:
+            acc[..., :1] += x[..., 2 * half:]
+        x, k = acc, half
+    return x[..., 0]
+
+
 def bilateral_planes_from_lab(lab_ext: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
     """Per-center ASW weight planes w(p, p+o) from a pre-extended Lab image.
 
@@ -175,10 +196,10 @@ def aggregate_asw_separable_from_stacks(
         if cfg.asw_symmetric:
             wv = wv * wvr[:, start : start + we]
             wh = wh * whr[:, start + r : start + we - r]
-        numv = (wv * _patches_1d_y(plane, r)).sum(dim=-1)  # (H, W + 2r)
-        denv = wv.sum(dim=-1)
-        num = (wh * _patches_1d_x(numv, r)).sum(dim=-1)  # (H, W)
-        den = (wh * _patches_1d_x(denv, r)).sum(dim=-1)
+        numv = _tap_sum(wv * _patches_1d_y(plane, r))  # (H, W + 2r)
+        denv = _tap_sum(wv)
+        num = _tap_sum(wh * _patches_1d_x(numv, r))  # (H, W)
+        den = _tap_sum(wh * _patches_1d_x(denv, r))
         out.append((num / den).to(torch.float32))
     return torch.stack(out, dim=-1)
 
@@ -216,18 +237,21 @@ def aggregate_asw_from_stacks(
     l_stack_ext: torch.Tensor,
     r_stack_ext: torch.Tensor,
     cfg: StereoConfig,
+    d_indices=None,
 ) -> torch.Tensor:
     """Exact ASW-aggregated cost volume from pre-extended channel stacks.
 
     l_stack_ext: (7, H, W + 2r); r_stack_ext: (7, H, W + 2r + D - 1) —
     preprocess.channel_stack layout, columns edge-extended per the pinned
-    padded-plane semantics.  Returns (H, W, D).  Each step builds its tap and
-    weight planes and frees them before the next, so peak memory stays at a
-    few (H, W, K^2) planes whatever D is.  A separable config goes to
+    padded-plane semantics.  Returns (H, W, D), or (H, W, len(d_indices))
+    for the given d's (a d-shard's slab, each plane bit for bit the whole
+    volume's).  Each step builds its tap and weight planes and frees them
+    before the next, so peak memory stays at a few (H, W, K^2) planes
+    whatever D is.  A separable config goes to
     ``aggregate_asw_separable_from_stacks``.
     """
     if cfg.asw_separable:
-        return aggregate_asw_separable_from_stacks(l_stack_ext, r_stack_ext, cfg)
+        return aggregate_asw_separable_from_stacks(l_stack_ext, r_stack_ext, cfg, d_indices)
     r = cfg.window_radius
     D = cfg.max_disparity
     k = cfg.window_size
@@ -243,7 +267,8 @@ def aggregate_asw_from_stacks(
         den_left = _window_sum(wl, k)
 
     out = []
-    for d in range(D):
+    for d in range(D) if d_indices is None else d_indices:
+        d = int(d)
         plane = cost_ops.cost_plane(planes, d, cfg)  # (H, W + 2r)
         taps = _patches_2d(plane, r, x_valid=True)  # (H, W, O), fresh
         if cfg.asw_symmetric:
@@ -264,10 +289,11 @@ def aggregate_asw(
     left: torch.Tensor,
     right: torch.Tensor,
     cfg: StereoConfig,
+    d_indices=None,
 ) -> torch.Tensor:
-    """Exact ASW-aggregated cost volume for a full pair: edge-pads the
-    channel stacks to the virtual padded planes and defers to
-    ``aggregate_asw_from_stacks``."""
+    """ASW-aggregated cost volume for a full pair (at ``d_indices`` only,
+    when given): edge-pads the channel stacks to the virtual padded planes
+    and defers to ``aggregate_asw_from_stacks``."""
     r = cfg.window_radius
     D = cfg.max_disparity
     ls = preprocess.channel_stack(left)
@@ -276,6 +302,7 @@ def aggregate_asw(
         preprocess.pad_edge(ls, 2, r, r),
         preprocess.pad_edge(rs, 2, r + D - 1, r),
         cfg,
+        d_indices,
     )
 
 

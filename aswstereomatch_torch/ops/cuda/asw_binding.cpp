@@ -18,14 +18,16 @@
 
 #include <tuple>
 #include <utility>
+#include <vector>
 
 extern "C" int asw_wta_launch(
     const float* ls, const float* rs, const float* sw, int H, int W, int r,
     int D, int mode, int cost_ad, float alpha, float one_minus_alpha,
     float tau_color, float tau_grad, float inv_gamma_color, float inv_n,
-    int ty, int tx, int dc, int kx, int smem_bytes,
+    int n_valid, int d_lo, int d_hi, int ty, int tx, int dc, int kx, int smem_bytes,
     int* bestd, float* bestc, float* cm, float* cp, float* ubest,
-    unsigned long long* rpack, int* rbestd, void* stream);
+    unsigned long long* rpack, int* rbestd, float* rbestc, float* strip_c,
+    int* strip_d, void* stream);
 extern "C" int asw_sep_wta_launch(
     const float* ls, const float* rs, const float* aw, int H, int W, int r,
     int D, int sym, int cost_ad, int bf16, float alpha, float one_minus_alpha,
@@ -87,12 +89,13 @@ std::pair<int64_t, int64_t> check_stacks(const at::Tensor& ls, const at::Tensor&
   return {H, W};
 }
 
-// The six (H, W) output planes, and the right view's packed words, filled
-// with all-ones: larger than every packed (cost, d) candidate.
+// The six (H, W) output planes, and the right view's packed words (H,
+// rpack_cols; W unless given), filled with all-ones: larger than every
+// packed (cost, d) candidate.
 struct Outputs {
   at::Tensor bestd, bestc, cm, cp, ubest, rbestd, rpack;
 
-  Outputs(const at::Tensor& like, int64_t H, int64_t W) {
+  Outputs(const at::Tensor& like, int64_t H, int64_t W, int64_t rpack_cols = -1) {
     const auto f32 = like.options();
     const auto i32 = like.options().dtype(at::kInt);
     bestd = at::empty({H, W}, i32);
@@ -101,7 +104,8 @@ struct Outputs {
     cp = at::empty({H, W}, f32);
     ubest = at::empty({H, W}, f32);
     rbestd = at::empty({H, W}, i32);
-    rpack = at::full({H, W}, -1, like.options().dtype(at::kLong));
+    rpack = at::full({H, rpack_cols < 0 ? W : rpack_cols}, -1,
+                     like.options().dtype(at::kLong));
   }
 
   unsigned long long* rpack_ptr() {
@@ -115,29 +119,44 @@ void* stream_of(const at::Tensor& t) {
   return c10::cuda::getCurrentCUDAStream(t.get_device()).stream();
 }
 
-Planes asw_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& sw,
-               int64_t r, int64_t D, int64_t mode, int64_t cost_ad, double alpha,
-               double one_minus_alpha, double tau_color, double tau_grad,
-               double inv_gamma_color, at::IntArrayRef plan) {
+// K1 also takes the shard inputs n_valid and the window [d_lo, d_hi), and
+// returns three more tensors: with want_strip, rbestc (H, W) and the strip
+// r_strip_c / r_strip_d (H, D - 1) of the right columns x' in [-(D-1), -1];
+// without it, three empty tensors.
+std::vector<at::Tensor> asw_wta(const at::Tensor& ls, const at::Tensor& rs,
+                                const at::Tensor& sw, int64_t r, int64_t D, int64_t mode,
+                                int64_t cost_ad, double alpha, double one_minus_alpha,
+                                double tau_color, double tau_grad, double inv_gamma_color,
+                                int64_t n_valid, int64_t d_lo, int64_t d_hi,
+                                bool want_strip, at::IntArrayRef plan) {
   const auto [H, W] = check_stacks(ls, rs, sw, 2, r, D);
   TORCH_CHECK(mode >= 0 && mode <= 2, "mode must be 0, 1 or 2");
   TORCH_CHECK(plan.size() == 5, "plan must be (ty, tx, dc, kx, smem_bytes)");
-  TORCH_CHECK(H * W < (int64_t)1 << 31, "image too large");
+  TORCH_CHECK(H * (W + D - 1) < (int64_t)1 << 31, "image too large");
+  TORCH_CHECK(n_valid >= 0 && n_valid <= W, "need 0 <= n_valid_cols <= W");
+  TORCH_CHECK(d_lo >= 0 && d_lo < d_hi && d_hi <= D, "need 0 <= lo < hi <= D");
   const int64_t K = 2 * r + 1;
   c10::cuda::CUDAGuard guard(ls.device());
-  Outputs o(ls, H, W);
+  Outputs o(ls, H, W, W + D - 1);
+  const auto f32 = ls.options();
+  at::Tensor rbestc = at::empty({want_strip ? H : 0, want_strip ? W : 0}, f32);
+  at::Tensor strip_c = at::empty({want_strip ? H : 0, want_strip ? D - 1 : 0}, f32);
+  at::Tensor strip_d = at::empty({want_strip ? H : 0, want_strip ? D - 1 : 0},
+                                 f32.dtype(at::kInt));
   const int err = asw_wta_launch(
       ls.data_ptr<float>(), rs.data_ptr<float>(), sw.data_ptr<float>(),
       (int)H, (int)W, (int)r, (int)D, (int)mode, (int)cost_ad, (float)alpha,
       (float)one_minus_alpha, (float)tau_color, (float)tau_grad,
-      (float)inv_gamma_color, (float)(1.0 / (double)(K * K)), (int)plan[0],
-      (int)plan[1], (int)plan[2], (int)plan[3], (int)plan[4],
+      (float)inv_gamma_color, (float)(1.0 / (double)(K * K)), (int)n_valid, (int)d_lo,
+      (int)d_hi, (int)plan[0], (int)plan[1], (int)plan[2], (int)plan[3], (int)plan[4],
       o.bestd.data_ptr<int>(), o.bestc.data_ptr<float>(), o.cm.data_ptr<float>(),
       o.cp.data_ptr<float>(), o.ubest.data_ptr<float>(), o.rpack_ptr(),
-      o.rbestd.data_ptr<int>(), stream_of(ls));
+      o.rbestd.data_ptr<int>(), want_strip ? rbestc.data_ptr<float>() : nullptr,
+      want_strip ? strip_c.data_ptr<float>() : nullptr,
+      want_strip ? strip_d.data_ptr<int>() : nullptr, stream_of(ls));
   TORCH_CHECK(err == 0, "asw_wta launch failed (tile plan ", plan, "): ",
               asw_error_string(err));
-  return o.planes();
+  return {o.bestd, o.bestc, o.cm, o.cp, o.ubest, o.rbestd, rbestc, strip_c, strip_d};
 }
 
 Planes asw_sep_wta(const at::Tensor& ls, const at::Tensor& rs, const at::Tensor& aw,
@@ -239,8 +258,8 @@ TORCH_LIBRARY(asw_torch, m) {
   m.def(
       "asw_wta(Tensor ls, Tensor rs, Tensor sw, int r, int D, int mode, "
       "int cost_ad, float alpha, float one_minus_alpha, float tau_color, "
-      "float tau_grad, float inv_gamma_color, int[] plan) "
-      "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
+      "float tau_grad, float inv_gamma_color, int n_valid, int d_lo, int d_hi, "
+      "bool want_strip, int[] plan) -> Tensor[]");
   m.def(
       "asw_sep_wta(Tensor ls, Tensor rs, Tensor aw, int r, int D, int sym, "
       "int cost_ad, int bf16, float alpha, float one_minus_alpha, "

@@ -24,9 +24,19 @@
 // config.py).  A y-tap reads the clamped row min(max(y + dy - r, 0), H - 1).
 //
 // Outputs, (H, W) each: bestd, bestc, cm (C at bestd-1), cp (C at bestd+1),
-// ubest (second-best cost excluding bestd +- 1) and rpack, the right view:
-// candidate C_R(x', d) = C_L(x' + d, d) folded in with an atomicMin on
-// (float bits << 32 | d), the first-occurrence argmin over d.
+// ubest (second-best cost excluding bestd +- 1); and rpack, (H, W + D - 1),
+// the right view over x' in [-(D-1), W): candidate C_R(x', d) = C_L(x' + d,
+// d) folded in with an atomicMin on (float bits << 32 | d), the
+// first-occurrence argmin over d, unpacked into rbestd and, for the
+// sharded layouts, rbestc and the strip of x' < 0.
+//
+// The shard inputs (asw_kernel.py:466-473 of the TPU kernel, :270-298):
+// left columns at or past n_valid feed no right-view candidate; only d in
+// the window [d_lo, d_hi) may win either view (bestd starts at d_lo), while
+// every d's plane is still computed and still feeds the pending cp and the
+// cm of the next plane, so a d-slab's overlap planes give the triple.  The
+// unsharded call (n_valid = W, the window [0, D)) computes what it computed
+// without them, bit for bit.
 //
 // Design.  The tile plan (TY, TX, DC, KX) comes from the wrapper
 // (asw_kernel.py::tile_plan), which sizes it to the geometry and the
@@ -88,11 +98,11 @@
 // registers per block than the card has at TY=2, and a cluster sharing
 // the right-weight window through distributed shared memory would save
 // ~0.6 G of ~10 G; neither was taken.  ptxas (sm_90a, the 128-register cap
-// of __launch_bounds__(512, 1)): symmetric 125 registers, left-only 113,
-// box 105, no spills; the MULTI instantiations (D > 128): symmetric 128
-// registers with 540 / 1028 bytes of spill stores / loads, left-only 128
-// with 24 / 96, box 124 and none.  The plans' times are in PERF.md
-// (section 6).
+// of __launch_bounds__(512, 1)), with the windowed WTA: symmetric 128
+// registers, left-only 116, box 104, no spills; the MULTI instantiations
+// (D > 128): symmetric 128 registers with 464 / 1112 bytes of spill stores
+// / loads, left-only 128 with 28 / 92, box 126 and none.  The plans' times
+// are in PERF.md (section 6).
 //
 // Determinism: each output sums its taps in one fixed (dy, then dx) order
 // whatever the tile plan; every column WTA runs d ascending across chunks;
@@ -122,6 +132,8 @@ struct Params {
   float alpha, one_minus_alpha, tau_color, tau_grad;
   float inv_gamma_color;  // (float)(1 / gamma_color)
   float inv_n;            // (float)(1 / K^2), box mode
+  int n_valid;            // left columns that feed the right view
+  int d_lo, d_hi;         // the window of d's that may win
 };
 
 // The tile plan: TY output rows x TX columns per block, d-chunks of DC,
@@ -162,6 +174,28 @@ Layout layout(const Plan& q, int mode) {
   L.rctr = L.lctr + (mode != kBox ? round4(3 * q.TY * q.TX) : 0);
   L.total = L.rctr + (mode == kSymmetric ? round4(3 * q.TY * NC) : 0);
   return L;
+}
+
+// The online WTA with only d in [lo, hi) allowed to win (the TPU kernel's
+// in_win, asw_kernel.py:275-298): an out-of-window plane still completes
+// a pending cp and becomes the prev a later winner's cm reads, but never
+// wins and never enters the next-best ranks.  Over the window [0, D) it is
+// Wta::update.  K1's own, so that the kernels sharing Wta compile as they
+// did.
+__device__ __forceinline__ Wta window_wta(int lo) {
+  Wta w;
+  w.bestd = lo;
+  return w;
+}
+
+__device__ __forceinline__ void window_update(Wta& w, float agg, int d, int lo,
+                                              int hi) {
+  if (d >= lo && d < hi) {
+    w.update(agg, d);
+    return;
+  }
+  if (w.bestd == d - 1) w.cp = agg;
+  w.prev = agg;
 }
 
 // Left-only: num[i][j] = fma(wl, C, num), den[i] += wl, dx ascending.
@@ -251,13 +285,14 @@ asw_wta_kernel(const float* __restrict__ ls, const float* __restrict__ rs,
   const int s_lo = y0 - r;             // stack rows s (unclamped) walked
   const int nst = (nrows + 2 * r) * nkx;  // stages: (stack row, run)
   const int nchunks = MULTI ? (D + DC - 1) / DC : 1;
-  const int xend = min(x0 + TX, W);
+  const int xend = min(x0 + TX, p.n_valid);  // past the last feeding column
+  const int WP = W + D - 1;                  // rpack's row: x' in [-(D-1), W)
   const int nlp = MODE == kBox ? 4 : NPLANES;        // left planes read
   const int nrp = MODE == kSymmetric ? NPLANES : 4;  // right planes read
   float* lctr = smem + L.lctr;
   float* rctr = smem + L.rctr;
 
-  Wta carry;  // column tid's WTA state across d-chunks (MULTI)
+  Wta carry = window_wta(p.d_lo);  // column tid's WTA state across d-chunks (MULTI)
 
   for (int ch = 0; ch < nchunks; ++ch) {
     const int d0 = ch * DC;
@@ -421,8 +456,9 @@ asw_wta_kernel(const float* __restrict__ ls, const float* __restrict__ rs,
     for (int c = tid; c < TY * TX; c += nthreads) {
       const int t = (unsigned)c / byTX, x = x0 + c - t * TX;
       if (t >= nrows || x >= W) continue;
-      Wta w = MULTI ? carry : Wta();  // c == tid when MULTI
-      for (int d = d0; d < dend; ++d) w.update(agg[c * AS + d - d0], d);
+      Wta w = MULTI ? carry : window_wta(p.d_lo);  // c == tid when MULTI
+      for (int d = d0; d < dend; ++d)
+        window_update(w, agg[c * AS + d - d0], d, p.d_lo, p.d_hi);
       if (MULTI) carry = w;
       if (ch == nchunks - 1) {
         const size_t o = (size_t)(y0 + t) * W + x;
@@ -433,27 +469,57 @@ asw_wta_kernel(const float* __restrict__ ls, const float* __restrict__ rs,
         ubest_out[o] = w.ubest();
       }
     }
-    // Right view: per right column x' and output row, the first-occurrence
-    // minimum of the candidates C_L(x' + d, d) with d in this chunk and
-    // x' + d in this tile, folded in with one atomicMin.
+    // Right view: per right column x' >= -(D-1) and output row, the
+    // first-occurrence minimum of the candidates C_L(x' + d, d) with d in
+    // this chunk and the window and x' + d in this tile and below n_valid,
+    // folded in with one atomicMin.
     const int NR = TX + DC - 1;
     const FastDiv byNR = fast_div(NR);
+    const int dlo = max(d0, p.d_lo), dhi = min(dend, p.d_hi) - 1;
     for (int k = tid; k < nrows * NR; k += nthreads) {
       const int t = (unsigned)k / byNR, xr = x0 - (dend - 1) + k - t * NR;
-      if (xr < 0) continue;
-      const int hi = min(dend - 1, xend - 1 - xr);
+      const int hi = min(dhi, xend - 1 - xr);
       float bc = INFINITY;
       int bd = -1;
-      for (int d = max(d0, x0 - xr); d <= hi; ++d) {
+      for (int d = max(dlo, x0 - xr); d <= hi; ++d) {
         const float a = agg[(t * TX + xr + d - x0) * AS + d - d0];
         if (a < bc) {
           bc = a;
           bd = d;
         }
       }
-      if (bd >= 0) fold_right(rpack + (size_t)(y0 + t) * W + xr, bc, bd);
+      if (bd >= 0) fold_right(rpack + (size_t)(y0 + t) * WP + xr + D - 1, bc, bd);
     }
     __syncthreads();  // the next chunk's build overwrites agg
+  }
+}
+
+// The right view from rpack (H, W + D - 1; column x' + D - 1 holds x'):
+// rbestd (H, W) for x' >= 0 and, where rbestc is not null, rbestc (H, W)
+// and the strip (H, D - 1) of x' < 0.  A slot no candidate reached (still
+// all-ones: out of the window, past n_valid, or left of every left column)
+// reads (inf, 0), the TPU kernel's initial partial.
+__global__ void unpack_right_wide_kernel(const unsigned long long* __restrict__ rpack,
+                                         int H, int W, int D, int* __restrict__ rbestd,
+                                         float* __restrict__ rbestc,
+                                         float* __restrict__ strip_c,
+                                         int* __restrict__ strip_d) {
+  const int WP = W + D - 1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= H * WP) return;
+  const int y = i / WP, j = i - y * WP;
+  const unsigned long long word = rpack[i];
+  const bool none = word == ~0ull;
+  const float c = none ? INFINITY : __uint_as_float((unsigned)(word >> 32));
+  const int d = none ? 0 : (int)(word & 0xffffffffull);
+  if (j >= D - 1) {
+    const int o = y * W + j - (D - 1);
+    rbestd[o] = d;
+    if (rbestc) rbestc[o] = c;
+  } else if (strip_c) {
+    const int o = y * (D - 1) + j;
+    strip_c[o] = c;
+    strip_d[o] = d;
   }
 }
 
@@ -486,22 +552,26 @@ cudaError_t launch(const float* ls, const float* rs, const float* sw,
 
 }  // namespace
 
-// Plain C entry, called by asw_binding.cpp.  `rpack` must hold all-ones
-// words on entry.  The plan (ty, tx, dc, kx) and its shared-memory bytes
-// come from asw_kernel.py::tile_plan; a plan this kernel cannot run
-// returns cudaErrorInvalidValue without launching.  Returns the
+// Plain C entry, called by asw_binding.cpp.  `rpack` (H, W + D - 1) must
+// hold all-ones words on entry.  The plan (ty, tx, dc, kx) and its
+// shared-memory bytes come from asw_kernel.py::tile_plan; a plan this
+// kernel cannot run, n_valid outside [0, W] or a window outside [0, D)
+// returns cudaErrorInvalidValue without launching.  rbestc, strip_c and
+// strip_d are null unless the caller wants the strip.  Returns the
 // cudaError_t of the launches (0 on success).
 extern "C" int asw_wta_launch(
     const float* ls, const float* rs, const float* sw, int H, int W, int r,
     int D, int mode, int cost_ad, float alpha, float one_minus_alpha,
     float tau_color, float tau_grad, float inv_gamma_color, float inv_n,
-    int ty, int tx, int dc, int kx, int smem_bytes,
+    int n_valid, int d_lo, int d_hi, int ty, int tx, int dc, int kx, int smem_bytes,
     int* bestd, float* bestc, float* cm, float* cp, float* ubest,
-    unsigned long long* rpack, int* rbestd, void* stream) {
+    unsigned long long* rpack, int* rbestd, float* rbestc, float* strip_c,
+    int* strip_d, void* stream) {
   const int K = 2 * r + 1;
   const Plan q{ty, tx, dc, kx};
   if (mode < 0 || mode > 2 || ty < 1 || tx < XT || tx % XT || dc < 8 || dc % 8 ||
-      dc > MAX_DC || kx < 1 || kx > K)
+      dc > MAX_DC || kx < 1 || kx > K || n_valid < 0 || n_valid > W || d_lo < 0 ||
+      d_lo >= d_hi || d_hi > D)
     return (int)cudaErrorInvalidValue;
   const long threads = (long)ty * (tx / XT) * (dc / 8);
   // More than one d-chunk: one thread per column carries its WTA state.
@@ -517,7 +587,7 @@ extern "C" int asw_wta_launch(
   if (smem != (size_t)smem_bytes || smem > (size_t)optin)
     return (int)cudaErrorInvalidValue;
   const Params p{H, W, r, D, K, cost_ad, alpha, one_minus_alpha,
-                 tau_color, tau_grad, inv_gamma_color, inv_n};
+                 tau_color, tau_grad, inv_gamma_color, inv_n, n_valid, d_lo, d_hi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == kSymmetric)
     err = launch<kSymmetric>(ls, rs, sw, p, q, L, (int)threads, s, bestd, bestc,
@@ -529,8 +599,9 @@ extern "C" int asw_wta_launch(
     err = launch<kBox>(ls, rs, sw, p, q, L, (int)threads, s, bestd, bestc, cm,
                        cp, ubest, rpack);
   if (err != cudaSuccess) return (int)err;
-  const int n = H * W;
-  unpack_right_kernel<<<(n + 255) / 256, 256, 0, s>>>(rpack, rbestd, n);
+  const int n = H * (W + D - 1);
+  unpack_right_wide_kernel<<<(n + 255) / 256, 256, 0, s>>>(rpack, H, W, D, rbestd,
+                                                          rbestc, strip_c, strip_d);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,11 @@ Both entry points return the same dict of (H, W) planes:
   rbestd               — right-view WTA (volume reuse), for the LR check
   ubest                — second-best cost excluding bestd +- 1
 
+The sharded layouts (``parallel/``) also pass the TPU kernel's shard inputs
+(its ``wta_outputs_from_stacks``, asw_kernel.py:466-473): ``n_valid_cols``,
+``d_window`` and ``want_strip``, which adds ``rbestc`` and the right-view
+strip ``r_strip_c`` / ``r_strip_d`` (H, D - 1).
+
 On a CUDA tensor the wrapper launches the kernel (and raises if it cannot);
 on a CPU tensor it computes the plain PyTorch version from the materialized
 aggregated volume.  ``wta_outputs_reference`` (``reference_from_stacks``
@@ -26,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ...config import StereoConfig
-from .. import aggregate
+from .. import aggregate, wta
 from ...utils.convert import spatial_weights_np
 from . import build
 from .common import PLANES, device_table, dispatch, f32, stacks, wta_planes
@@ -127,16 +132,66 @@ def _mode(cfg: StereoConfig) -> int:
     return SYMMETRIC if cfg.asw_symmetric else LEFT_ONLY
 
 
-def reference_from_stacks(ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig) -> dict:
+def reference_from_stacks(ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig,
+                          *, n_valid_cols: int | None = None, want_strip: bool = False,
+                          d_window: tuple[int, int] | None = None) -> dict:
     """The kernel's function in plain PyTorch over pre-extended channel
     stacks, on any device, from the materialized aggregated volume (the
-    forms ``aggregate.aggregated_volume`` uses)."""
+    forms ``aggregate.aggregated_volume`` uses).  The shard inputs as
+    ``wta_outputs_from_stacks`` takes them."""
     _check(cfg)
     if cfg.aggregation == "box":
         vol = aggregate.aggregate_box(aggregate.cost_volume_from_stacks(ls_ext, rs_ext, cfg), cfg)
     else:
         vol = aggregate.aggregate_asw_from_stacks(ls_ext, rs_ext, cfg)
-    return wta_planes(vol)
+    W, D = vol.shape[1], vol.shape[2]
+    n_valid, (lo, hi) = _shard_inputs(n_valid_cols, d_window, W, D)
+    if n_valid == W and (lo, hi) == (0, D) and not want_strip:
+        return wta_planes(vol)
+    return window_planes(vol, n_valid, lo, hi, want_strip)
+
+
+def _shard_inputs(n_valid_cols, d_window, W: int, D: int) -> tuple:
+    """(n_valid, (lo, hi)) with their defaults, W and the whole range of d;
+    raises on values the kernel does not take."""
+    n_valid = W if n_valid_cols is None else int(n_valid_cols)
+    lo, hi = (0, D) if d_window is None else (int(d_window[0]), int(d_window[1]))
+    if not 0 <= n_valid <= W:
+        raise ValueError(f"n_valid_cols {n_valid} outside [0, {W}]")
+    if not 0 <= lo < hi <= D:
+        raise ValueError(f"d_window {(lo, hi)} outside [0, {D})")
+    return n_valid, (lo, hi)
+
+
+def window_planes(vol: torch.Tensor, n_valid: int, lo: int, hi: int,
+                   want_strip: bool) -> dict:
+    """The kernel's planes with the shard inputs, from the (H, W, D)
+    volume: only d in [lo, hi) may win either view (cm / cp still read the
+    planes beside the winner), left columns at or past ``n_valid`` feed no
+    right-view candidate, and the right view covers x' in [-(D-1), W); a
+    right pixel no candidate reaches reads (inf, 0), as the kernels' does."""
+    H, W, D = vol.shape
+    dev = vol.device
+    inf = torch.tensor(float("inf"), dtype=vol.dtype, device=dev)
+    dd = torch.arange(D, device=dev)
+    in_win = (dd >= lo) & (dd < hi)
+    win = torch.where(in_win, vol, inf)
+    bestd = wta.wta(win)
+    take = lambda i: torch.gather(vol, -1, i.to(torch.int64)[..., None])[..., 0]  # noqa: E731
+    out = {"bestd": bestd, "bestc": take(bestd), "cm": take((bestd - 1).clamp(0, D - 1)),
+           "cp": take((bestd + 1).clamp(0, D - 1)),
+           "ubest": wta.second_best_excl_neighbors(win, bestd)}
+    src = torch.arange(W + D - 1, device=dev)[:, None] - (D - 1) + dd[None, :]  # x' + d
+    ok = (src >= 0) & (src < n_valid) & in_win[None, :]
+    cand = torch.gather(win, 1, src.clamp(0, W - 1).expand(H, W + D - 1, D))
+    cand = torch.where(ok, cand, inf)
+    rc, rd = cand.amin(-1), wta.wta(cand)
+    out["rbestd"] = rd[:, D - 1:].contiguous()
+    if want_strip:
+        out["rbestc"] = rc[:, D - 1:].contiguous()
+        out["r_strip_c"] = rc[:, : D - 1].contiguous()
+        out["r_strip_d"] = rd[:, : D - 1].contiguous()
+    return out
 
 
 def _check(cfg: StereoConfig) -> None:
@@ -163,25 +218,41 @@ def wta_outputs(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> d
 
 def wta_outputs_from_stacks(
     ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig,
-    plan: TilePlan | None = None,
+    plan: TilePlan | None = None, *, n_valid_cols: int | None = None,
+    want_strip: bool = False, d_window: tuple[int, int] | None = None,
 ) -> dict:
     """Fused kernel over pre-extended channel stacks.
 
     ls_ext: (7, H, W + 2r); rs_ext: (7, H, W + 2r + D - 1), columns extended
-    per the padded-plane rule.  ``plan`` overrides ``tile_plan`` (any plan
-    gives the same bits; a plan the kernel cannot run raises).
+    per the padded-plane rule (in a shard, real neighbour columns).
+    ``plan`` overrides ``tile_plan`` (any plan gives the same bits; a plan
+    the kernel cannot run raises).
+
+    The shard inputs of the TPU kernel: ``n_valid_cols`` (default W) left
+    columns are real pixels, the rest feed no right-view candidate;
+    ``d_window = (lo, hi)`` (default (0, D)) lets only those d's win either
+    view, while every d's plane is still computed; ``want_strip`` adds
+    ``rbestc`` (H, W) and the right-view partial ``r_strip_c`` /
+    ``r_strip_d`` (H, D - 1) of the columns [-(D-1), -1] left of the local
+    origin, for a cross-shard strict-< merge.  The reference refuses a
+    strip when D - 1 exceeds its TPU tile width; here the right view is one
+    buffer of W + D - 1 columns, so no such limit applies.
     """
     _check(cfg)
-    return dispatch(ls_ext, rs_ext, cfg, reference_from_stacks,
-                    lambda ls, rs, c: _launch(ls, rs, c, plan))
+    kw = dict(n_valid_cols=n_valid_cols, want_strip=want_strip, d_window=d_window)
+    return dispatch(ls_ext, rs_ext, cfg,
+                    lambda ls, rs, c: reference_from_stacks(ls, rs, c, **kw),
+                    lambda ls, rs, c: _launch(ls, rs, c, plan, **kw))
 
 
-def _launch(ls_ext, rs_ext, cfg, plan=None) -> dict:
+def _launch(ls_ext, rs_ext, cfg, plan=None, n_valid_cols=None, want_strip=False,
+            d_window=None) -> dict:
     global launches
     build.load()
     mode = _mode(cfg)
+    H, W = ls_ext.shape[1], ls_ext.shape[2] - 2 * cfg.window_radius
+    n_valid, (lo, hi) = _shard_inputs(n_valid_cols, d_window, W, cfg.max_disparity)
     if plan is None:
-        H, W = ls_ext.shape[1], ls_ext.shape[2] - 2 * cfg.window_radius
         plan = tile_plan(H, W, cfg.max_disparity, cfg.window_radius, mode)
     sw = device_table(spatial_weights_np, cfg, ls_ext.device)
     outs = torch.ops.asw_torch.asw_wta(
@@ -197,7 +268,11 @@ def _launch(ls_ext, rs_ext, cfg, plan=None) -> dict:
         f32(cfg.tau_color),
         f32(cfg.tau_grad),
         f32(1.0 / cfg.gamma_color),
+        n_valid, lo, hi, bool(want_strip),
         [*plan, plan.smem_bytes(mode)],
     )
     launches += 1
-    return dict(zip(PLANES, outs))
+    out = dict(zip(PLANES, outs[:6]))
+    if want_strip:
+        out.update(rbestc=outs[6], r_strip_c=outs[7], r_strip_d=outs[8])
+    return out

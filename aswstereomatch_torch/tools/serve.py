@@ -218,6 +218,9 @@ class _Handler(socketserver.BaseRequestHandler):
                 self.request.sendall(struct.pack("<I", len(hb)) + hb + body)
             except (ConnectionError, OSError):
                 return
+            # After the answer is sent: past the RSS limit the main thread
+            # exits at once, and an answer still unsent would be lost.
+            srv.check_rss()
             if drop:
                 return
 
@@ -280,7 +283,6 @@ class Server(socketserver.ThreadingTCPServer):
         if rdtype == "uint16_x256":
             disp = encode_u16(disp)
         host = [t.cpu().numpy() for t in (disp, *planes)]  # waits for the card
-        self.check_rss()
         rheader = {
             "status": "ok",
             "height": host[0].shape[0],

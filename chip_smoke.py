@@ -24,9 +24,12 @@ per kernel or path; any failure exits non-zero:
                mode is held to its drift bar against float32); K1 also
                past its old easy shapes: D = 160 (more than one d-chunk)
                in each mode, r = 32, H and W not multiples of its tile
-               plan, D = 1; SGM bit for bit over SGM_SMALL_CASES (H = 1,
-               W = 1, D from 1 to 256 and 6200, zero and other penalties,
-               4 and 8 paths);
+               plan, D = 1; K1's shard inputs (K1_SHARD_CASES:
+               n_valid_cols < W, a d_window, the right-view strip, alone
+               and together, in each mode, also at D = 160) at the same
+               bars, the strip's d exact where its cost is finite; SGM bit
+               for bit over SGM_SMALL_CASES (H = 1, W = 1, D from 1 to 256
+               and 6200, zero and other penalties, 4 and 8 paths);
   4. full    — the same comparison at full width: K1 on a synthetic 450x375
                pair, D=64, r=16, on kitti_tiled's config at 1242x375,
                D=128, and in box mode at tsukuba_ad_box's 384x288, D=16,
@@ -93,7 +96,23 @@ per kernel or path; any failure exits non-zero:
                left-only weights (K3 5), bad-2.0 < 5%, the PNG read back;
                ``tools.sweep`` over 4 pairs (K2 4), resumed after two lost
                records (K2 2), and one pair fetched in f32 within 1/512 px
-               of u16.
+               of u16;
+  8. sharded — parallel/'s layouts at 1242x375 D=128 on a virtual mesh of
+               one card repeated ([cuda:0] x 4: the card runs the shards in
+               turn, so a time here is no multi-card time), each equal bit
+               for bit to the unsharded run and read for its launches:
+               kitti_tiled y-, x- and d-sharded (K1 4 each) against K1;
+               kitti_sep y (K2 4) against K2; left-only y (K3 4) against
+               K3, x and d (K1 4) against K1 (kernel_layout="xlanes"); box
+               x and d (K1 4) against K1; kitti_batch's two pairs on a 2x2
+               mesh (K1 4) against their single maps; median ms of each
+               layout and of its unsharded run.  Every K1 call of the x and
+               d layouts (recorded in the counted run) against its plain
+               version on the same inputs (check_k1_shard_call: a winner
+               that differs must be a near-tie).  CPU inputs over the card
+               mesh: kitti_tiled y, x and d through api.sharded_match_fn
+               and kitti_batch through distributed.run_batch_distributed
+               (K1 4 each), back on the CPU equal to the unsharded maps.
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
@@ -149,6 +168,27 @@ SMALL_CASES = [
     ("r32_d16", dict(max_disparity=16, window_radius=32), (10, 70), dict(seed=3), "exact"),
     ("ragged", {}, (45, 150), dict(seed=3), "exact"),
     ("d1", dict(max_disparity=1, window_radius=1), (9, 20), dict(seed=3), "exact"),
+]
+
+
+# K1's shard inputs, the sharded layouts' (parallel/): (name, config
+# overrides, (H, W), make_pair kwargs, shard inputs, bar) as SMALL_CASES.
+K1_SHARD_CASES = [
+    ("window", {}, (24, 40), dict(seed=3), dict(d_window=(1, 7)), "exact"),
+    ("n_valid", {}, (24, 40), dict(seed=3), dict(n_valid_cols=33), "exact"),
+    ("strip", {}, (16, 200), dict(seed=3), dict(want_strip=True), "exact"),
+    # a d-shard's call: one overlap d each side, every column real, the strip
+    ("dshard_form", dict(max_disparity=10), (24, 48), dict(seed=3),
+     dict(n_valid_cols=48, d_window=(1, 9), want_strip=True), "exact"),
+    ("all_left_only", dict(asw_symmetric=False), (24, 40), dict(seed=3),
+     dict(n_valid_cols=31, d_window=(2, 6), want_strip=True), "exact"),
+    ("all_box", dict(aggregation="box", window_radius=3), (24, 40), dict(seed=12),
+     dict(n_valid_cols=31, d_window=(2, 6), want_strip=True), 0.999),
+    # more than one d-chunk: the window across chunks, a strip of 159 columns
+    ("d160_all", dict(max_disparity=160), (16, 200), dict(seed=3),
+     dict(n_valid_cols=190, d_window=(20, 150), want_strip=True), "exact"),
+    ("d160_left_only_last_chunk", dict(max_disparity=160, asw_symmetric=False), (16, 200),
+     dict(seed=3), dict(d_window=(129, 160), want_strip=True), "exact"),
 ]
 
 
@@ -412,6 +452,110 @@ def check_small(name, overrides, shape, pair_kw, bar, device, kernel=None) -> di
         np.testing.assert_allclose(got["bestc"], ref["bestc"], rtol=1e-4, atol=1e-3,
                                    err_msg=f"{name} bestc")
     return {"case": name, "max_abs_err": float(np.abs(got["bestc"] - ref["bestc"]).max())}
+
+
+def check_k1_shard(name, overrides, shape, pair_kw, shard, bar, device) -> dict:
+    """K1 with shard inputs against its plain version over the same stacks:
+    ``bar`` as check_small's; with the strip, rbestc and r_strip_c at the
+    float tolerance (inf where no candidate reaches a column) and r_strip_d
+    exact where its cost is finite, 0 elsewhere.  Raises AssertionError."""
+    import torch
+
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import asw_kernel, common
+    from aswstereomatch_torch.utils import synthetic
+
+    cfg = StereoConfig(**{**_BASE, **overrides})
+    D = cfg.max_disparity
+    p = synthetic.make_pair(height=shape[0], width=shape[1], max_disparity=D, **pair_kw)
+    ls, rs = common.stacks(torch.from_numpy(p["left"]).to(device),
+                           torch.from_numpy(p["right"]).to(device), cfg)
+    before = asw_kernel.launches
+    got = asw_kernel.wta_outputs_from_stacks(ls, rs, cfg, **shard)
+    assert asw_kernel.launches == before + 1, f"{name}: the kernel did not launch"
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    ref = {k: v.cpu().numpy()
+           for k, v in asw_kernel.reference_from_stacks(ls, rs, cfg, **shard).items()}
+    assert sorted(got) == sorted(ref), f"{name}: planes {sorted(got)} vs {sorted(ref)}"
+    tol = dict(rtol=1e-5, atol=1e-4)
+    if bar == "exact":
+        _check_exact(name, got, ref, D, tol)
+    else:
+        for k in ("bestd", "rbestd"):
+            agree = float((got[k] == ref[k]).mean())
+            assert agree > bar, f"{name} {k}: agree {agree}"
+        np.testing.assert_allclose(got["bestc"], ref["bestc"], rtol=1e-4, atol=1e-3,
+                                   err_msg=f"{name} bestc")
+        tol = dict(rtol=1e-4, atol=1e-3)
+    if shard.get("want_strip"):
+        assert got["r_strip_c"].shape == (shape[0], D - 1), f"{name}: strip shape"
+        for k in ("rbestc", "r_strip_c"):
+            np.testing.assert_allclose(got[k], ref[k], **tol, err_msg=f"{name} {k}")
+        finite = np.isfinite(ref["r_strip_c"])
+        same = got["r_strip_d"][finite] == ref["r_strip_d"][finite]
+        assert (same.all() if bar == "exact" else same.mean() > bar), f"{name} r_strip_d"
+        assert (got["r_strip_d"][~finite] == 0).all(), f"{name}: r_strip_d where no candidate"
+    return {"case": name, "max_abs_err": float(np.abs(got["bestc"] - ref["bestc"]).max())}
+
+
+def check_k1_shard_call(name, ls, rs, cfg, shard, got) -> dict:
+    """One K1 call that a sharded layout made (its stacks, config, shard
+    inputs and outputs) against the plain version on the same inputs.
+
+    At full width some pixels' two best sums lie within float rounding of
+    each other, so the kernel and the plain version may pick either: every
+    pixel where a winner differs must be such a near-tie (the plain cost of
+    the kernel's winner within the float tolerance of the plain best, the
+    winner inside the window and, in the right view, a candidate that
+    exists), in both views and the strip.  Costs everywhere (rbestc and
+    r_strip_c too, inf where no candidate reaches a column), cm / cp /
+    ubest where the winner agrees, r_strip_d 0 where no candidate reaches.
+    Raises AssertionError; returns the mismatch counts and max errors."""
+    import torch
+
+    from aswstereomatch_torch.ops import aggregate
+    from aswstereomatch_torch.ops.cuda import asw_kernel
+
+    D = cfg.max_disparity
+    tol = (dict(rtol=1e-5, atol=1e-4) if cfg.aggregation == "asw"
+           else dict(rtol=1e-4, atol=1e-3))
+    ref = {k: v.cpu().numpy() for k, v in
+           asw_kernel.reference_from_stacks(ls, rs, cfg, **shard).items()}
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    assert sorted(got) == sorted(ref), f"{name}: planes {sorted(got)} vs {sorted(ref)}"
+    vol = (aggregate.aggregate_box(aggregate.cost_volume_from_stacks(ls, rs, cfg), cfg)
+           if cfg.aggregation == "box" else aggregate.aggregate_asw_from_stacks(ls, rs, cfg))
+    vol = vol.cpu().numpy()
+    H, W, _ = vol.shape
+    n_valid = shard.get("n_valid_cols", W)
+    lo, hi = shard.get("d_window", (0, D))
+    rows = np.arange(H)[:, None]
+
+    gd, rd = got["bestd"], ref["bestd"]
+    assert ((gd >= lo) & (gd < hi)).all(), f"{name}: bestd outside {lo, hi}"
+    mis = gd != rd
+    np.testing.assert_allclose(vol[rows, np.arange(W)[None, :], gd][mis], ref["bestc"][mis],
+                               **tol, err_msg=f"{name}: bestd differs beyond a near-tie")
+    np.testing.assert_allclose(got["bestc"], ref["bestc"], **tol, err_msg=f"{name} bestc")
+    inner = ~mis & (rd > 0) & (rd < D - 1)
+    for k, m in (("cm", inner), ("cp", inner), ("ubest", ~mis)):
+        np.testing.assert_allclose(got[k][m], ref[k][m], **tol, err_msg=f"{name} {k}")
+
+    # the right view over x' in [-(D-1), W): the strip, then the own columns
+    cat = lambda o, a, b: np.concatenate([o[a], o[b]], axis=1)  # noqa: E731
+    g_rc, r_rc = cat(got, "r_strip_c", "rbestc"), cat(ref, "r_strip_c", "rbestc")
+    g_rd, r_rd = cat(got, "r_strip_d", "rbestd"), cat(ref, "r_strip_d", "rbestd")
+    np.testing.assert_allclose(g_rc, r_rc, **tol, err_msg=f"{name} rbestc / r_strip_c")
+    finite = np.isfinite(r_rc)
+    assert (g_rd[~finite] == 0).all(), f"{name}: r_strip_d where no candidate"
+    rmis = (g_rd != r_rd) & finite
+    x = np.arange(-(D - 1), W)[None, :] + g_rd  # the left column of got's candidate
+    ok = (x >= 0) & (x < n_valid) & (g_rd >= lo) & (g_rd < hi)
+    assert ok[rmis].all(), f"{name}: a right-view winner that is no candidate"
+    np.testing.assert_allclose(vol[rows, x.clip(0, W - 1), g_rd][rmis], r_rc[rmis], **tol,
+                               err_msg=f"{name}: rbestd differs beyond a near-tie")
+    return {"bestd_ties": int(mis.sum()), "rbestd_ties": int(rmis.sum()),
+            "max_abs_err": float(np.abs(got["bestc"] - ref["bestc"]).max())}
 
 
 def _check_exact(name, got, ref, D, tol) -> None:
@@ -812,6 +956,139 @@ def entry_points(card: str, dev, reset, launched) -> None:
     sweep_phase(card, reset, launched)
 
 
+# ---- 8. the sharded layouts on a virtual mesh of one card ------------------
+
+def sharded_phase(card: str, dev, reset, launched) -> dict:
+    """Phase 8: parallel/'s layouts at 1242x375 D=128 on [dev] x 4 (and a
+    2x2 mesh for kitti_batch), each against the unsharded run bit for bit,
+    launches read around each; returns the median times by layout."""
+    import torch
+
+    from aswstereomatch_torch import get_preset
+    from aswstereomatch_torch.models import pipeline
+    from aswstereomatch_torch.ops.cuda import asw_kernel
+    from aswstereomatch_torch.parallel import api, distributed, dshard, mesh, tiling
+    from aswstereomatch_torch.utils import synthetic
+
+    p = synthetic.make_dataset_pair("kitti")
+    l = torch.from_numpy(p["left"]).to(dev)
+    r = torch.from_numpy(p["right"]).to(dev)
+    m4 = mesh.build_mesh(1, 4, [dev] * 4)
+    fns = {"y": tiling.match_pair_tiled, "x": tiling.match_pair_tiled_x,
+           "d": dshard.match_pair_dsharded}
+    kitti = get_preset("kitti_tiled")
+    lo, box = kitti.replace(asw_symmetric=False), kitti.replace(aggregation="box")
+    sep = get_preset("kitti_sep")
+    xl = lambda c: c.replace(kernel_layout="xlanes")  # noqa: E731  (K1)
+    # (label, config, axis, the unsharded run's config, its kernel, the layout's kernel)
+    cases = [("kitti_tiled", kitti, "y", kitti, "K1", "K1"),
+             ("kitti_tiled", kitti, "x", kitti, "K1", "K1"),
+             ("kitti_tiled", kitti, "d", kitti, "K1", "K1"),
+             ("kitti_sep", sep, "y", sep, "K2", "K2"),
+             ("left-only", lo, "y", lo, "K3", "K3"),
+             ("left-only", lo, "x", xl(lo), "K1", "K1"),
+             ("left-only", lo, "d", xl(lo), "K1", "K1"),
+             ("box", box, "x", xl(box), "K1", "K1"),
+             ("box", box, "d", xl(box), "K1", "K1")]
+    virtual = "virtual mesh, one card runs the shards in turn: not a multi-card time"
+    times, unsharded = {}, {}
+    for label, cfg, axis, ucfg, ukey, key in cases:
+        if ucfg not in unsharded:
+            reset()
+            unsharded[ucfg] = pipeline.match_pair(l, r, ucfg)
+            launched(f"sharded: unsharded {label}", {ukey: 1})
+        want = unsharded[ucfg]
+        calls = []
+        kernel_call = asw_kernel.wta_outputs_from_stacks
+        if axis in "xd":
+            # record K1's calls with the shard inputs the layout gives it
+            def recording(ls, rs, c, plan=None, **kw):
+                outs = kernel_call(ls, rs, c, plan, **kw)
+                calls.append((ls, rs, c, kw, outs))
+                return outs
+            asw_kernel.wta_outputs_from_stacks = recording
+        try:
+            reset()
+            got = fns[axis](l, r, cfg, m4)
+            n = launched(f"sharded: {label} {axis}", {key: 4})
+        finally:
+            asw_kernel.wta_outputs_from_stacks = kernel_call
+        if not torch.equal(got, want):
+            fail(f"sharded: {label} {axis}-sharded differs from the unsharded {ukey} run on "
+                 f"{int((got != want).sum())} of {want.numel()} pixels")
+        for k, (ls, rs, c, kw, outs) in enumerate(calls):
+            name = f"sharded: {label} {axis}-shard {k}'s K1 call"
+            try:
+                res = check_k1_shard_call(name, ls, rs, c, kw, outs)
+            except AssertionError as e:
+                fail(f"{name}: {e}")
+            print(f"sharded {label} {axis}-shard {k}: K1 at ({ls.shape[1]}, "
+                  f"{ls.shape[2] - 2 * c.window_radius}) D={c.max_disparity} with {kw} equals "
+                  f"its plain version (near-ties: bestd {res['bestd_ties']}, right view "
+                  f"{res['rbestd_ties']}; max |bestc err| {res['max_abs_err']:.3g})", flush=True)
+        t = times[f"{label} {axis}"] = {
+            "ms": _median_ms(lambda: fns[axis](l, r, cfg, m4), 3),
+            "unsharded_ms": _median_ms(lambda: pipeline.match_pair(l, r, ucfg), 3),
+            "launches": n}
+        print(f"sharded {label} {axis} 1242x375 D=128, 4 shards ({virtual}) on {card}: "
+              f"equals the unsharded {ukey} run bit for bit; {t['ms']:.3f} ms against "
+              f"{t['unsharded_ms']:.3f} ms unsharded; {key} launches {n}", flush=True)
+    # kitti_batch: two pairs over data 2 x tile 2, each y-tiled over 2 shards
+    batch_cfg = get_preset("kitti_batch")
+    p2 = synthetic.make_dataset_pair("kitti", seed=1)
+    lefts = torch.stack([l, torch.from_numpy(p2["left"]).to(dev)])
+    rights = torch.stack([r, torch.from_numpy(p2["right"]).to(dev)])
+    m22 = mesh.build_mesh(2, 2, [dev] * 4)
+    singles = [pipeline.match_pair(lefts[i], rights[i], batch_cfg) for i in range(2)]
+    reset()
+    out = tiling.match_batch_sharded(lefts, rights, batch_cfg, m22)
+    n = launched("sharded: kitti_batch 2x2", {"K1": 4})
+    for i in range(2):
+        if not torch.equal(out[i], singles[i]):
+            fail(f"sharded: kitti_batch pair {i} on the 2x2 mesh differs from its single "
+                 f"map on {int((out[i] != singles[i]).sum())} pixels")
+    t = times["kitti_batch 2x2"] = {
+        "ms": _median_ms(lambda: tiling.match_batch_sharded(lefts, rights, batch_cfg, m22), 3),
+        "unsharded_ms": _median_ms(lambda: pipeline.match_batch(lefts, rights, batch_cfg), 3),
+        "launches": n}
+    print(f"sharded kitti_batch 2 pairs 1242x375 D=128, data 2 x tile 2 ({virtual}) on {card}: "
+          f"each pair equals its single unsharded K1 map bit for bit; {t['ms']:.3f} ms against "
+          f"{t['unsharded_ms']:.3f} ms for the unsharded batch; K1 launches {n}", flush=True)
+
+    # A caller's CPU tensors over the card mesh: the shards run on the card
+    # (K1, no plain version) and the map comes back to the CPU, through the
+    # config-driven entry point and through the multi-process runner's
+    # batch slice in this one process.
+    lc, rc = p["left"], p["right"]
+    want = unsharded[kitti].cpu()
+    for axis in "yxd":
+        fn = api.sharded_match_fn(kitti.replace(mesh_data=1, mesh_tile=4, tile_axis=axis),
+                                  [dev] * 4)
+        reset()
+        got = fn(torch.from_numpy(lc), torch.from_numpy(rc))
+        launched(f"sharded: kitti_tiled {axis} from CPU inputs", {"K1": 4})
+        if got.device.type != "cpu" or not torch.equal(got, want):
+            fail(f"sharded: kitti_tiled {axis} from CPU inputs on {got.device} differs from "
+                 f"the unsharded run on {int((got.cpu() != want).sum())} pixels")
+    gm = distributed.global_mesh(tile=2, devices=[dev] * 4)
+    reset()
+    shards = distributed.run_batch_distributed(np.stack([lc, p2["left"]]),
+                                               np.stack([rc, p2["right"]]), batch_cfg, gm)
+    launched("sharded: run_batch_distributed from CPU inputs", {"K1": 4})
+    out = torch.full((2, *want.shape), float("nan"))
+    for s in shards:
+        out[s.index] = s.data.cpu()
+    for i in range(2):
+        if not torch.equal(out[i], singles[i].cpu()):
+            fail(f"sharded: run_batch_distributed pair {i} differs from its single map on "
+                 f"{int((out[i] != singles[i].cpu()).sum())} pixels")
+    print(f"sharded from CPU inputs over [{dev}] x 4 on {card}: kitti_tiled y, x and d "
+          f"through api.sharded_match_fn (K1 4 each) and kitti_batch's 2 pairs through "
+          f"distributed.run_batch_distributed on a {gm.shape} mesh (K1 4) come back to the "
+          f"CPU equal to the unsharded maps bit for bit", flush=True)
+    return times
+
+
 def main() -> int:
     sys.path.insert(0, str(HERE))
     try:
@@ -874,6 +1151,14 @@ def main() -> int:
                 except AssertionError as e:
                     fail(f"{label} {name}: {e}")
         print(f"{label}: " + ", ".join(f"{s['case']} ok" for s in small), flush=True)
+    shard_small = []
+    for case in K1_SHARD_CASES:
+        try:
+            shard_small.append(check_k1_shard(*case, device=dev))
+        except AssertionError as e:
+            fail(f"small K1 shard inputs {case[0]}: {e}")
+    print("small K1 shard inputs (n_valid_cols, d_window, strip): "
+          + ", ".join(f"{s['case']} ok" for s in shard_small), flush=True)
     for case in SGM_SMALL_CASES:
         try:
             check_sgm(*case, device=dev)
@@ -1284,6 +1569,9 @@ def main() -> int:
     # ---- 7. the entry points: serve, CLI, sweep -------------------------
     entry_points(card, dev, reset, launched)
 
+    # ---- 8. the sharded layouts -----------------------------------------
+    sharded = sharded_phase(card, dev, reset, launched)
+
     def row(name, source, replaces, launches, err, geo, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, **times[geo],
@@ -1293,7 +1581,7 @@ def main() -> int:
         row("asw_wta", "aswstereomatch_torch/ops/cuda/asw_kernel.cu",
             "aswstereomatch_tpu/ops/pallas/asw_kernel.py:166", main_launches,
             max_abs_err, "K1 450x375", kitti=times["K1 1242x375"],
-            box=times["K1 box 384x288"]),
+            box=times["K1 box 384x288"], sharded=sharded),
         row("asw_sep_wta", "aswstereomatch_torch/ops/cuda/asw_sep_kernel.cu",
             "aswstereomatch_tpu/ops/pallas/asw_sep_dlanes.py:192", sep_launches,
             sep_err, "K2 kitti_sep 1242x375", seplo=times["K2 kitti_seplo 1242x375"]),

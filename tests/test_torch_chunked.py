@@ -63,13 +63,12 @@ EAGER_IDS = ["asw_full", "ad_box", "weighted_median", "left_only_uniq", "separab
 
 @pytest.fixture(autouse=True)
 def one_thread():
-    """Run each test's PyTorch work on one thread.  PyTorch splits a large
-    elementwise op across its threads by element count, so a band and the
-    whole image hand a given pixel to different threads, and each thread
-    has its own floating-point environment (rounding mode, flush to zero),
-    which earlier code in the process can leave different on the main
-    thread.  On one thread the comparison is about the port's arithmetic
-    alone; chip_smoke.py makes the same comparison on the card."""
+    """Run each test's PyTorch work on one thread: tier-1 runs six pytest
+    workers on the machine's cores, and at the default count their OpenMP
+    threads oversubscribe them (this file ran ~7x longer).  Bands equal the
+    whole image at the default count too (the y layout of
+    test_torch_sharding.py::test_layouts_equal_unsharded_at_default_threads
+    runs the same band function)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -93,15 +93,29 @@ def test_cli_mesh_warns_and_runs_unsharded(tmp_path, axis):
     np.testing.assert_array_equal(disp, plain)
 
 
-def test_cli_mesh_that_fits_is_refused(tmp_path, monkeypatch, capsys):
-    """Where the mesh fits the visible cards the port, which has no sharded
-    path yet, exits 2 naming ROADMAP's parallel/ item instead of running a
-    layout it does not have."""
-    monkeypatch.setattr(cli, "visible_devices", lambda device: 4)
-    rc, _ = run_cli([*BOX, "--mesh", "1x4"], tmp_path)
-    assert rc == 2
-    assert "parallel/" in capsys.readouterr().err
-    assert not (tmp_path / "run.json").exists()
+@pytest.mark.parametrize("axis", ["y", "x", "d"])
+def test_cli_mesh_that_fits_runs_sharded(tmp_path, monkeypatch, axis):
+    """Where the mesh fits the visible devices (here 4 CPU devices), the CLI
+    runs the declared layout through parallel.api.sharded_match_fn, as the
+    reference's CLI does, with no warning, and writes the unsharded map."""
+    from aswstereomatch_torch.parallel import api
+
+    monkeypatch.setattr(cli, "visible_devices", lambda device: [torch.device("cpu")] * 4)
+    built, sharded_match_fn = [], api.sharded_match_fn
+
+    def spy(cfg, devices=None):
+        built.append((cfg.mesh_tile, cfg.tile_axis, len(devices)))
+        return sharded_match_fn(cfg, devices)
+
+    monkeypatch.setattr(cli.parallel_api, "sharded_match_fn", spy)
+    args = [*TSUKUBA, "--aggregation", "asw", "--window-radius", "2", "--no-postprocess"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        rec, disp = _map([*args, "--mesh", "1x4", "--shard-axis", axis], tmp_path, "mesh")
+    assert built == [(4, axis, 4)]
+    assert (rec["config"]["mesh_tile"], rec["config"]["tile_axis"]) == (4, axis)
+    _, plain = _map(args, tmp_path, "plain")
+    np.testing.assert_array_equal(disp, plain)
 
 
 def test_cli_device_cuda_without_a_card_raises(tmp_path):
