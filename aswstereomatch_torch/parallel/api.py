@@ -23,12 +23,13 @@ from . import dshard, mesh as mesh_lib, tiling
 
 def layout_fits(cfg: StereoConfig, devices: Optional[Sequence] = None) -> bool:
     """True iff cfg declares a > 1-device mesh that fits ``devices``
-    (default: ``mesh.default_devices()``); a mesh that needs more warns
-    that the run goes unsharded."""
-    devices = mesh_lib.default_devices() if devices is None else list(devices)
+    (default: ``mesh.default_devices()``, the visible cards, which raises
+    where there is none); a mesh that needs more warns that the run goes
+    unsharded."""
     need = cfg.mesh_data * cfg.mesh_tile
     if need <= 1:
         return False
+    devices = mesh_lib.default_devices() if devices is None else list(devices)
     if need > len(devices):
         warnings.warn(
             f"config declares a {cfg.mesh_data}x{cfg.mesh_tile} mesh but only "
@@ -42,11 +43,12 @@ def sharded_match_fn(cfg: StereoConfig, devices: Optional[Sequence] = None):
     """(left, right) -> disparity callable honoring cfg's mesh layout.
 
     Falls back to the single-device pipeline when the layout is 1x1 or does
-    not fit the devices (with a warning).
+    not fit the devices (with a warning).  ``devices`` defaults to the
+    visible cards (``mesh.default_devices()``).
     """
-    devices = mesh_lib.default_devices() if devices is None else list(devices)
     if not layout_fits(cfg, devices):
         return functools.partial(pipeline.match_pair, cfg=cfg)
+    devices = mesh_lib.default_devices() if devices is None else list(devices)
     m = mesh_lib.mesh_from_config(cfg, devices)
     fn = {
         "y": tiling.match_pair_tiled,
@@ -62,9 +64,9 @@ def sharded_batch_fn(cfg: StereoConfig, devices: Optional[Sequence] = None):
     Batch mode shards "data" x y-tiles; for an x / d tile_axis each pair
     goes through the single-pair layout in turn.
     """
-    devices = mesh_lib.default_devices() if devices is None else list(devices)
     if not layout_fits(cfg, devices):
         return functools.partial(pipeline.match_batch, cfg=cfg)
+    devices = mesh_lib.default_devices() if devices is None else list(devices)
     m = mesh_lib.mesh_from_config(cfg, devices)
     if cfg.tile_axis == "y":
         return functools.partial(tiling.match_batch_sharded, cfg=cfg, device_mesh=m)

@@ -29,8 +29,11 @@ from ..config import StereoConfig
 from ..models import pipeline
 from ..ops import aggregate, postprocess, preprocess
 from ..ops.cuda import asw_kernel
+from . import collectives
 from . import mesh as mesh_lib
-from .tiling import _kernel_route, _replicated, _shard_device, _to
+from .collectives import to_device
+from .mesh import Shard
+from .tiling import _kernel_route, _result, _shard_device
 
 
 def _kernel_shard_wta(ls_ext_g, rs_pad_g, k, cfg, ds, D, h, w):
@@ -123,11 +126,15 @@ def match_pair_dsharded(
     right: torch.Tensor,
     cfg: StereoConfig,
     device_mesh: mesh_lib.Mesh,
-) -> torch.Tensor:
+):
     """Single pair with the disparity axis sharded over "tile".
 
-    Images are replicated (they are ~100x smaller than the volume); only
-    per-shard winner planes move in the combine step.
+    Each process builds its stacks from the pair it holds (the reference
+    replicates the images, ~100x smaller than the volume); only per-shard
+    winner planes move in the combine step, gathered in shard order onto
+    each owner, where the ordered merge and the post-processing run.
+    Returns (H, W) on the inputs' device, or on a mesh that spans processes
+    this process's ``Shard``s, each the whole (replicated) map.
 
     Kernel route: d-sharding needs K1's [lo, hi) disparity window, so
     left-only ASW and box run K1 here even where the unsharded
@@ -150,24 +157,28 @@ def match_pair_dsharded(
         )
     ds = D // n
     h, w = left.shape[:2]
-    devices = device_mesh.tile_devices()
-    dev0 = _shard_device(devices)
+    dev0 = _shard_device(device_mesh.tile_devices())
     use_kernel = pipeline._resolve_backend(cfg, dev0) == "cuda"
     if cfg.aggregation != "asw" and not (cfg.aggregation == "box" and use_kernel):
         raise ValueError("disparity sharding covers asw (both backends) and box (cuda)")
     use_kernel = use_kernel and _kernel_route(
         cfg, dev0,
         "disparity-sharded runs use the x-lanes kernel (its [lo, hi) disparity window)")
+    group = collectives.Group.of(device_mesh)
 
-    if use_kernel:
-        ls_ext_g, rs_pad_g = _stacks_g(_to(left, dev0), _to(right, dev0), cfg)
-        parts = [_kernel_shard_wta(_to(ls_ext_g, dev), _to(rs_pad_g, dev), k, cfg, ds, D, h, w)
-                 for k, dev in enumerate(devices)]
-    else:
-        parts = [_eager_shard_wta(_to(left, dev), _to(right, dev), k, cfg, ds, D, w)
-                 for k, dev in enumerate(devices)]
+    stacks = {}  # the padded stacks, built once per device of this process
+    parts = {}
+    for k in group.local:
+        dev = group.device(k)
+        if use_kernel:
+            if dev not in stacks:
+                stacks[dev] = _stacks_g(to_device(left, dev), to_device(right, dev), cfg)
+            parts[k] = list(_kernel_shard_wta(*stacks[dev], k, cfg, ds, D, h, w))
+        else:
+            parts[k] = list(_eager_shard_wta(to_device(left, dev), to_device(right, dev),
+                                             k, cfg, ds, D, w))
 
-    # Global combine: every shard's planes gathered onto each device, the
+    # Global combine: every shard's planes gathered onto each owner, the
     # ordered merge and the post-processing run replicated there.
     def combine(gathered):
         bc, bd, bcm, bcp, _, rd = _merge(gathered)
@@ -175,8 +186,9 @@ def match_pair_dsharded(
         disp = pipeline._disp_pre_from_wta(outs, cfg)
         if cfg.median_filter:
             disp = postprocess.median_filter(
-                disp, cfg, pipeline._guide_lab(_to(left, disp.device), cfg))
+                disp, cfg, pipeline._guide_lab(to_device(left, disp.device), cfg))
         return disp.to(torch.float32)
 
-    disp = _replicated(parts, devices, combine)
-    return _to(disp[devices[0]], left.device)
+    disp = collectives.replicated(group, parts, combine)
+    shards = [Shard((slice(0, h), slice(0, w)), disp[k]) for k in group.local]
+    return _result(device_mesh, shards, (h, w), left.device)

@@ -3,12 +3,14 @@ and data x tile batches.
 
 Counterpart of ``aswstereomatch_tpu.parallel.tiling``, with the same
 names, checks and messages.  The reference runs each layout under
-``shard_map``; here one controller cuts the input into per-shard blocks on
-the tile devices (parallel/mesh.py), runs the per-shard work there, and
-moves blocks between devices where the reference has a collective: a
-``ppermute`` is the neighbour's block moved to this shard's device, an
-``all_gather`` a ``torch.cat`` on each device.  Launches on distinct cards
-are asynchronous, so their shards overlap; shards on one device run in turn.
+``shard_map``; here each layout is SPMD over the mesh's owners
+(parallel/mesh.py): every process runs the same function on the pair it
+holds, cuts and computes only the shards it owns, and receives its
+neighbours' rows, columns, strips and winner planes through the transport
+(parallel/collectives.py), which moves a block within a process to the
+shard's device and between processes through ``torch.distributed``.
+Launches on distinct cards are asynchronous, so their shards overlap;
+shards on one device run in turn.
 
   - y-tiling: each shard matches its rows plus ``halo_y`` rows from each
     neighbour through the single-device band function
@@ -23,6 +25,10 @@ are asynchronous, so their shards overlap; shards on one device run in turn.
     occurrence kept), and the small winner planes are gathered for the
     x-global post-processing.
 
+A layout returns the whole map on the inputs' device where this process
+owns every shard, and this process's ``mesh.Shard``s (a global index and
+the block on its shard's device) on a mesh that spans processes.
+
 Invariant (tested): every layout equals the unsharded run bit for bit.
 """
 
@@ -34,20 +40,15 @@ from ..config import StereoConfig
 from ..models import pipeline
 from ..ops import aggregate, postprocess, preprocess
 from ..ops.cuda import asw_kernel
+from . import collectives
 from . import mesh as mesh_lib
+from .collectives import to_device
+from .mesh import Shard
 
 
 def _halo_rows(cfg: StereoConfig) -> int:
     """Image rows of halo each side (see StereoConfig.halo_y)."""
     return cfg.halo_y
-
-
-def _to(t: torch.Tensor, device) -> torch.Tensor:
-    """A block moved to ``device`` (a no-op on its own device).  A copy to a
-    card is asynchronous; a copy to the CPU is not, since a non-blocking
-    one would hand back a buffer that the card has yet to fill."""
-    device = torch.device(device)
-    return t.to(device, non_blocking=device.type == "cuda")
 
 
 def _shard_device(devices: list) -> torch.device:
@@ -65,47 +66,71 @@ def _edge(t: torch.Tensor, dim: int, count: int) -> torch.Tensor:
     return t.expand(*[count if i == dim else s for i, s in enumerate(t.shape)])
 
 
-def _exchange(blocks: list, lo: int, hi: int, dim: int) -> list:
-    """Each block extended by ``lo`` entries along ``dim`` from the previous
-    shard's end and ``hi`` from the next shard's start, moved to its own
-    device; boundary shards take edge replicas of their own first / last
-    entry (the untiled edge-replicated plane)."""
-    n = len(blocks)
-    out = []
-    for i, b in enumerate(blocks):
-        size = b.shape[dim]
-        if i > 0:
-            prev = _to(blocks[i - 1].narrow(dim, blocks[i - 1].shape[dim] - lo, lo), b.device)
-        else:
-            prev = _edge(b.narrow(dim, 0, 1), dim, lo)
-        if i < n - 1:
-            nxt = _to(blocks[i + 1].narrow(dim, 0, hi), b.device)
-        else:
-            nxt = _edge(b.narrow(dim, size - 1, 1), dim, hi)
-        out.append(torch.cat([prev, b, nxt], dim=dim))
+def _exchange(group: collectives.Group, blocks: dict, halos: list, dim: int) -> dict:
+    """Each local shard's parts extended along ``dim``, part p by
+    ``halos[p]`` = (lo, hi) entries: ``lo`` from the previous shard's end
+    and ``hi`` from the next shard's start (the reference's two
+    ppermutes), on its own device; boundary shards take edge replicas of
+    their own first / last entry (the untiled edge-replicated plane).
+    ``blocks``: {k: [parts]} for the local shards, every shard's parts of
+    one shape."""
+    n = group.size
+
+    def part(src, dst):
+        if dst == src + 1:
+            return [t.narrow(dim, t.shape[dim] - lo, lo) for t, (lo, _) in zip(blocks[src], halos)]
+        return [t.narrow(dim, 0, hi) for t, (_, hi) in zip(blocks[src], halos)]
+
+    def like(src, dst):
+        sizes = [lo if dst == src + 1 else hi for lo, hi in halos]
+        return [(tuple(size if i == dim else s for i, s in enumerate(t.shape)), t.dtype)
+                for t, size in zip(blocks[dst], sizes)]
+
+    msgs = [(k, k + 1) for k in range(n - 1)] + [(k + 1, k) for k in range(n - 1)]
+    got = collectives.exchange(group, msgs, part, like, "halo")
+    out = {}
+    for k in group.local:
+        ext = []
+        for p, (t, (lo, hi)) in enumerate(zip(blocks[k], halos)):
+            prev = got[(k - 1, k)][p] if k > 0 else _edge(t.narrow(dim, 0, 1), dim, lo)
+            nxt = (got[(k + 1, k)][p] if k < n - 1
+                   else _edge(t.narrow(dim, t.shape[dim] - 1, 1), dim, hi))
+            ext.append(torch.cat([prev, t, nxt], dim=dim))
+        out[k] = ext
     return out
 
 
-def _exchange_halos(blocks: list, halo: int) -> list:
-    """Row halos: per-shard (rows, ...) blocks -> (halo + rows + halo, ...),
-    each on its shard's device.  Boundary shards take edge-replicated rows."""
-    return _exchange(blocks, halo, halo, 0)
-
-
-def _rows_tiled(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
-                devices: list, true_h: int) -> torch.Tensor:
-    """One pair, its rows (a multiple of len(devices)) sharded over
-    ``devices``: the owned rows of every shard, concatenated on the
-    caller's device."""
-    n = len(devices)
-    rows = left.shape[0] // n
+def _rows_tiled(lefts: torch.Tensor, rights: torch.Tensor, cfg: StereoConfig,
+                group: collectives.Group, true_h: int) -> dict:
+    """Pairs (P, rows * n, W[, 3]), their rows sharded over ``group``'s n
+    shards: {k: the owned rows (P, rows, W) of local shard k}.  One halo
+    exchange carries the P pairs."""
+    rows = lefts.shape[1] // group.size
     halo = _halo_rows(cfg)
-    lb = [_to(left[k * rows:(k + 1) * rows], dev) for k, dev in enumerate(devices)]
-    rb = [_to(right[k * rows:(k + 1) * rows], dev) for k, dev in enumerate(devices)]
-    l_ext, r_ext = _exchange_halos(lb, halo), _exchange_halos(rb, halo)
-    outs = [pipeline.tile_disparity(l_ext[k], r_ext[k], cfg, halo, rows, true_h, k * rows)
-            for k in range(n)]
-    return torch.cat([_to(o, left.device) for o in outs])
+    blocks = {k: [to_device(a[:, k * rows:(k + 1) * rows], group.device(k))
+                  for a in (lefts, rights)] for k in group.local}
+    ext = _exchange(group, blocks, [(halo, halo)] * 2, 1)
+    return {k: torch.stack([pipeline.tile_disparity(l_ext, r_ext, cfg, halo, rows, true_h,
+                                                    k * rows)
+                            for l_ext, r_ext in zip(*ext[k])])
+            for k in group.local}
+
+
+def _span(k: int, size: int, end: int) -> slice:
+    """Shard k's slice of an axis cut in ``size``s, clipped to ``end``."""
+    return slice(min(k * size, end), min((k + 1) * size, end))
+
+
+def _result(device_mesh: mesh_lib.Mesh, shards: list, shape: tuple, device):
+    """A layout's result: this process's ``Shard``s on a mesh that spans
+    processes; where every shard is local, the whole (float32) map on
+    ``device``."""
+    if not device_mesh.is_local:
+        return shards
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    for s in shards:
+        out[s.index].copy_(s.data)
+    return out
 
 
 def _pad_rows(n: int, cfg: StereoConfig, *imgs, dim: int = 0):
@@ -138,34 +163,36 @@ def match_pair_tiled(
     right: torch.Tensor,
     cfg: StereoConfig,
     device_mesh: mesh_lib.Mesh,
-) -> torch.Tensor:
+):
     """Single pair, y-sharded over the mesh "tile" axis (the first data
-    row's devices).
+    row's owners).
 
     Pads H to a multiple of the tile count (bottom, edge rows) and trims;
     real rows are bit-identical to the untiled pipeline.  Returns (H, W) on
-    the inputs' device.
+    the inputs' device, or on a mesh that spans processes this process's
+    ``Shard``s, each its rows of the map.
     """
     _reject_global_aggregation(cfg)
     n = device_mesh.shape[mesh_lib.TILE_AXIS]
-    h = left.shape[0]
+    h, w = left.shape[:2]
     left, right = _pad_rows(n, cfg, left, right)
-    return _rows_tiled(left, right, cfg, device_mesh.tile_devices(), h)[:h]
+    rows = left.shape[0] // n
+    outs = _rows_tiled(left[None], right[None], cfg, collectives.Group.of(device_mesh), h)
+    shards = []
+    for k, out in outs.items():
+        span = _span(k, rows, h)
+        shards.append(Shard((span, slice(0, w)), out[0, :span.stop - span.start]))
+    return _result(device_mesh, shards, (h, w), left.device)
 
 
-def match_batch_sharded(
+def match_batch_shards(
     lefts: torch.Tensor,
     rights: torch.Tensor,
     cfg: StereoConfig,
     device_mesh: mesh_lib.Mesh,
-) -> torch.Tensor:
-    """Batched throughput mode: batch over "data" x rows over "tile".
-
-    (B, H, W[, 3]) inputs; data row i matches the i-th contiguous slice of
-    the batch, one pair after another (as ``pipeline.match_batch`` does),
-    each y-tiled over its row's devices.  Returns (B, H, W) on the inputs'
-    device.
-    """
+) -> list:
+    """This process's ``Shard``s of ``match_batch_sharded``'s result, each a
+    (batch, row) block of the (B, H, W) maps on its shard's device."""
     nd = device_mesh.shape[mesh_lib.DATA_AXIS]
     nt = device_mesh.shape[mesh_lib.TILE_AXIS]
     if nt > 1:
@@ -177,39 +204,62 @@ def match_batch_sharded(
     if b % nd:
         raise ValueError(f"batch {b} not divisible by data axis {nd}")
     per = b // nd
+    mine = sorted({i for i, _ in device_mesh.local_shards()})
     if cfg.aggregation == "sgm":
         # Data-only layout (nt == 1, enforced above): each shard runs the
         # UNSHARDED pipeline on its local pairs — no y halos, because even
         # edge-replicated halo rows would perturb the global scanline
         # recurrence.
-        outs = [pipeline.match_batch(_to(lefts[i * per:(i + 1) * per], dev[0]),
-                                     _to(rights[i * per:(i + 1) * per], dev[0]), cfg)
-                for i, dev in enumerate(device_mesh.devices)]
-        return torch.cat([_to(o, lefts.device) for o in outs])
+        return [Shard((slice(i * per, (i + 1) * per), slice(0, h)),
+                      pipeline.match_batch(to_device(lefts[i * per:(i + 1) * per], dev),
+                                           to_device(rights[i * per:(i + 1) * per], dev), cfg))
+                for i in mine for dev in device_mesh.tile_devices(i)]
     lefts, rights = _pad_rows(nt, cfg, lefts, rights, dim=1)
-    outs = []
-    for i in range(nd):
-        devices = device_mesh.tile_devices(i)
-        for j in range(i * per, (i + 1) * per):
-            outs.append(_rows_tiled(lefts[j], rights[j], cfg, devices, h)[:h])
-    if not outs:
-        return torch.empty((0, h, lefts.shape[2]), dtype=torch.float32, device=lefts.device)
-    return torch.stack(outs)
+    rows = lefts.shape[1] // nt
+    shards = []
+    for i in mine if per else ():
+        batch = slice(i * per, (i + 1) * per)
+        outs = _rows_tiled(lefts[batch], rights[batch], cfg,
+                           collectives.Group.of(device_mesh, i), h)
+        for k, out in outs.items():
+            span = _span(k, rows, h)
+            shards.append(Shard((batch, span), out[:, :span.stop - span.start]))
+    return shards
+
+
+def match_batch_sharded(
+    lefts: torch.Tensor,
+    rights: torch.Tensor,
+    cfg: StereoConfig,
+    device_mesh: mesh_lib.Mesh,
+):
+    """Batched throughput mode: batch over "data" x rows over "tile".
+
+    (B, H, W[, 3]) inputs; data row i matches the i-th contiguous slice of
+    the batch, one halo exchange for the slice's pairs, each pair y-tiled
+    over its row's shards.  Returns (B, H, W) on the inputs' device, or on
+    a mesh that spans processes this process's ``Shard``s
+    (``match_batch_shards``).
+    """
+    shards = match_batch_shards(lefts, rights, cfg, device_mesh)
+    return _result(device_mesh, shards, tuple(lefts.shape[:3]), lefts.device)
 
 
 def shard_batch_arrays(arrays, device_mesh: mesh_lib.Mesh):
     """Each (B, H, ...) tensor of ``arrays`` cut data x tile: a list over the
     data axis of lists over the tile axis of blocks, block (i, k) holding
     the i-th batch slice's k-th row slice on device (i, k) (the reference's
-    ``P("data", "tile")`` placement).  B must divide by the data axis; rows
-    are cut as evenly as they go."""
+    ``P("data", "tile")`` placement), or None where another process owns
+    shard (i, k).  B must divide by the data axis; rows are cut as evenly
+    as they go."""
     nd = device_mesh.shape[mesh_lib.DATA_AXIS]
     nt = device_mesh.shape[mesh_lib.TILE_AXIS]
+    mine = set(device_mesh.local_shards())
 
     def put(a):
         if a.shape[0] % nd:
             raise ValueError(f"batch {a.shape[0]} not divisible by data axis {nd}")
-        return [[_to(blk, device_mesh.devices[i, k])
+        return [[to_device(blk, device_mesh.devices[i, k]) if (i, k) in mine else None
                  for k, blk in enumerate(torch.tensor_split(part, nt, dim=1))]
                 for i, part in enumerate(torch.tensor_split(a, nd, dim=0))]
 
@@ -219,17 +269,6 @@ def shard_batch_arrays(arrays, device_mesh: mesh_lib.Mesh):
 # ---------------------------------------------------------------------------
 # x-axis tiling — the ring / D_max-halo layout
 # ---------------------------------------------------------------------------
-
-def _exchange_halos_x(blocks: list, hl: int, hr: int) -> list:
-    """Column halo exchange on the last axis: (..., ws) -> (..., hl+ws+hr).
-
-    The left halo carries ``hl`` columns from the previous shard (for the
-    right-image stack this is the aggregation radius + D_max strip);
-    boundary shards substitute edge replicas, which equals the virtual
-    padded plane.
-    """
-    return _exchange(blocks, hl, hr, blocks[0].ndim - 1)
-
 
 def _kernel_route(cfg: StereoConfig, device, uses: str) -> bool:
     """True where ``cfg`` runs on a kernel on ``device``; a sharded layout
@@ -251,31 +290,22 @@ def _kernel_route(cfg: StereoConfig, device, uses: str) -> bool:
     return True
 
 
-def _replicated(parts_by_shard: list, devices: list, fn) -> dict:
-    """``fn`` of every shard's parts, gathered onto each distinct device of
-    ``devices`` in shard order (the reference's all_gather + replicated
-    compute; a device that holds several shards computes once)."""
-    out = {}
-    for dev in devices:
-        if dev not in out:
-            out[dev] = fn([[_to(p, dev) for p in parts] for parts in parts_by_shard])
-    return out
-
-
 def match_pair_tiled_x(
     left: torch.Tensor,
     right: torch.Tensor,
     cfg: StereoConfig,
     device_mesh: mesh_lib.Mesh,
-) -> torch.Tensor:
+):
     """Single pair, x-sharded over the mesh "tile" axis (ASW and box).
 
     Per shard: cost + aggregation + WTA over its columns from real
     neighbour columns; right-view partials merged with the next shard's
     (D-1)-column strip (strict <, preserving first-min); the small per-view
     winner planes are then gathered so the x-global post-processing stages
-    (LR gather along x, row fill, median) run replicated — bit-identical to
-    the untiled pipeline.
+    (LR gather along x, row fill, median) run replicated, once per owner —
+    bit-identical to the untiled pipeline.  Returns (H, W) on the inputs'
+    device, or on a mesh that spans processes this process's ``Shard``s,
+    each its columns of the map.
 
     Kernel route: x-tiling needs K1's right-view strip, so left-only ASW
     and box run K1 here even where the unsharded ``kernel_layout="auto"``
@@ -297,64 +327,72 @@ def match_pair_tiled_x(
             f"right-image halo {hl_right} exceeds {ws} cols/shard; "
             "use fewer x-shards"
         )
-    devices = device_mesh.tile_devices()
-    dev0 = _shard_device(devices)
     use_kernel = _kernel_route(
-        cfg, dev0, "x-tiled runs use the x-lanes kernel (its right-view strip export)")
+        cfg, _shard_device(device_mesh.tile_devices()),
+        "x-tiled runs use the x-lanes kernel (its right-view strip export)")
+    group = collectives.Group.of(device_mesh)
+    if not group.local:
+        return _result(device_mesh, [], (h, w), left.device)
 
-    # the stacks are built where the shards run, as an unsharded run there
-    # builds them
-    ls = preprocess.channel_stack(_to(left, dev0))
-    rs = preprocess.channel_stack(_to(right, dev0))
+    # the stacks are built where this process's first shard runs, as an
+    # unsharded run there builds them; each shard takes its columns
+    home = group.device(group.local[0])
+    ls = preprocess.channel_stack(to_device(left, home))
+    rs = preprocess.channel_stack(to_device(right, home))
     if pad:
         ls = preprocess.pad_edge(ls, 2, 0, pad)
         rs = preprocess.pad_edge(rs, 2, 0, pad)
-    l_blk = [_to(ls[..., k * ws:(k + 1) * ws], dev) for k, dev in enumerate(devices)]
-    r_blk = [_to(rs[..., k * ws:(k + 1) * ws], dev) for k, dev in enumerate(devices)]
-    l_ext = _exchange_halos_x(l_blk, hr, hr)
-    r_ext = _exchange_halos_x(r_blk, hl_right, hr)
+    blocks = {k: [to_device(a[..., k * ws:(k + 1) * ws], group.device(k)) for a in (ls, rs)]
+              for k in group.local}
+    ext = _exchange(group, blocks, [(hr, hr), (hl_right, hr)], 2)
 
     keys = ["bestd", "bestc", "cm", "cp"] + (["ubest"] if cfg.uniqueness_ratio > 0 else [])
-    planes, own, strips = [], [], []
-    for k in range(n):
+    planes, own, strips = {}, {}, {}
+    for k in group.local:
+        l_ext, r_ext = ext[k]
         n_valid = min(max(w - k * ws, 0), ws)  # real left cols in this shard
         if use_kernel:
             outs = asw_kernel.wta_outputs_from_stacks(
-                l_ext[k], r_ext[k], cfg, n_valid_cols=n_valid, want_strip=True)
+                l_ext, r_ext, cfg, n_valid_cols=n_valid, want_strip=True)
         else:
             if cfg.aggregation == "box":
                 vol = aggregate.aggregate_box(
-                    aggregate.cost_volume_from_stacks(l_ext[k], r_ext[k], cfg), cfg)
+                    aggregate.cost_volume_from_stacks(l_ext, r_ext, cfg), cfg)
             else:
-                vol = aggregate.aggregate_asw_from_stacks(l_ext[k], r_ext[k], cfg)
+                vol = aggregate.aggregate_asw_from_stacks(l_ext, r_ext, cfg)
             # the right-view partial over x' in [x0 - (D-1), x0 + ws): the
             # candidate (x', d) lives here iff left pixel x' + d is owned
             # and real; gathered over the local volume
             outs = asw_kernel.window_planes(vol, n_valid, 0, D, True)
-        planes.append([outs[key] for key in keys])
-        own.append((outs["rbestc"], outs["rbestd"]))
-        strips.append((outs["r_strip_c"], outs["r_strip_d"]))
+        planes[k] = [outs[key] for key in keys]
+        own[k] = (outs["rbestc"], outs["rbestd"])
+        strips[k] = [outs["r_strip_c"], outs["r_strip_d"]]
 
     # Merge with the next shard's left strip (its candidates have strictly
     # larger d for the same x', so strict < keeps first-min).
-    rbestd = []
-    for k in range(n):
+    nb = collectives.exchange(group, [(k + 1, k) for k in range(n - 1)] if D > 1 else [],
+                              lambda src, dst: strips[src],
+                              lambda src, dst: [(t.shape, t.dtype) for t in strips[dst]],
+                              "strip")
+    rbestd = {}
+    for k in group.local:
         own_c, own_d = own[k]
-        if k < n - 1 and D > 1:
+        if (k + 1, k) in nb:
             dev = own_c.device
-            nb_c, nb_d = (_to(t, dev) for t in strips[k + 1])
+            nb_c, nb_d = nb[(k + 1, k)]
             cand_c = torch.cat([torch.full((h, ws - (D - 1)), float("inf"), device=dev), nb_c], 1)
             cand_d = torch.cat([torch.zeros((h, ws - (D - 1)), dtype=torch.int32, device=dev),
                                 nb_d], 1)
             take = cand_c < own_c
             own_d = torch.where(take, cand_d, own_d)
-        rbestd.append(own_d)
+        rbestd[k] = own_d
 
     # Gather the small winner planes (and, for the weighted median, the
     # left Lab planes); the x-global post-processing runs replicated.
     names = keys + ["rbestd"]
     weighted = cfg.median_filter and cfg.median_mode == "weighted"
-    parts = [planes[k] + [rbestd[k]] + ([l_blk[k][4:7]] if weighted else []) for k in range(n)]
+    parts = {k: planes[k] + [rbestd[k]] + ([blocks[k][0][4:7]] if weighted else [])
+             for k in group.local}
 
     def post(gathered):
         full = [torch.cat(f, dim=-1)[..., :w] for f in zip(*gathered)]
@@ -364,6 +402,9 @@ def match_pair_tiled_x(
             disp = postprocess.median_filter(disp, cfg, guide)
         return disp
 
-    disp = _replicated(parts, devices, post)
-    slices = [_to(disp[dev][:, k * ws:(k + 1) * ws], left.device) for k, dev in enumerate(devices)]
-    return torch.cat(slices, dim=1)
+    disp = collectives.replicated(group, parts, post)
+    shards = []
+    for k in group.local:
+        span = _span(k, ws, w)
+        shards.append(Shard((slice(0, h), span), disp[k][:, span]))
+    return _result(device_mesh, shards, (h, w), left.device)

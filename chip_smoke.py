@@ -112,7 +112,18 @@ per kernel or path; any failure exits non-zero:
                that differs must be a near-tie).  CPU inputs over the card
                mesh: kitti_tiled y, x and d through api.sharded_match_fn
                and kitti_batch through distributed.run_batch_distributed
-               (K1 4 each), back on the CPU equal to the unsharded maps.
+               (K1 4 each), back on the CPU equal to the unsharded maps;
+  9. tile    — one pair's tile axis across processes: 4 worker processes
+               (``chip_smoke.py --tile-worker``) on the card over gloo
+               (NCCL refuses two ranks on one card) run kitti_tiled y, x
+               and d on tile 4, kitti_sep y, left-only y and kitti_batch on
+               data 2 x tile 2 at 1242x375 D=128; each holds its shards
+               against the unsharded map bit for bit and reads its
+               launches; the launches summed over the processes must be
+               phase 8's, one per shard; per-layout times and the bytes
+               each exchange sent between processes are printed.  With two
+               cards or more the same runs over NCCL, one card per
+               process; otherwise it prints that NCCL was not run.
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
@@ -1089,6 +1100,178 @@ def sharded_phase(card: str, dev, reset, launched) -> dict:
     return times
 
 
+# ---- 9. one pair's tile axis across processes ------------------------------
+
+TILE_WORKERS = 4
+TILE_WORKER_TIMEOUT_S = 240
+# (label, preset, config change, layout, the unsharded run's kernel): phase
+# 8's kitti_tiled y, x and d, kitti_sep y, left-only y and kitti_batch, each
+# with its 4 launches of that kernel summed over the processes
+TILE_CASES = [("kitti_tiled y", "kitti_tiled", {}, "y", "K1"),
+              ("kitti_tiled x", "kitti_tiled", {}, "x", "K1"),
+              ("kitti_tiled d", "kitti_tiled", {}, "d", "K1"),
+              ("kitti_sep y", "kitti_sep", {}, "y", "K2"),
+              ("left-only y", "kitti_tiled", {"asw_symmetric": False}, "y", "K3"),
+              ("kitti_batch 2x2", "kitti_batch", {}, "batch", "K1")]
+
+
+def tile_worker(rank: int, nproc: int, port: int, backend: str, out: str) -> int:
+    """Phase 9's worker ``rank`` of ``nproc``: brings up the process group
+    over ``backend`` (gloo: every process on cuda:0; NCCL: one card each),
+    runs each TILE_CASES layout on the global mesh (tile 4; data 2 x tile 2
+    for the batch) with the launch counters and the transport's byte counts
+    read around it, holds its shards against the unsharded map bit for bit,
+    times three more runs between barriers and writes what it read to
+    ``out/<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    from aswstereomatch_torch import get_preset
+    from aswstereomatch_torch.models import pipeline
+    from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
+                                               asw_sym_dlanes_kernel, build, sgm_kernel)
+    from aswstereomatch_torch.parallel import collectives, distributed, dshard, tiling
+    from aswstereomatch_torch.utils import synthetic
+
+    kernels = {"K1": asw_kernel, "K2": asw_sep_kernel, "K3": asw_dlanes_kernel,
+               "K4": asw_sym_dlanes_kernel, "SGM": sgm_kernel}
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    build.load()  # the parent's build, found by its key
+    distributed.initialize(f"127.0.0.1:{port}", nproc, rank, backend=backend)
+    per = TILE_WORKERS // nproc
+    m4 = distributed.global_mesh(tile=4, devices=[dev] * per)
+    m22 = distributed.global_mesh(tile=2, devices=[dev] * per)
+    p = [synthetic.make_dataset_pair("kitti", seed=s) for s in (0, 1)]
+    lefts = np.stack([q["left"] for q in p])
+    rights = np.stack([q["right"] for q in p])
+    l, r = torch.from_numpy(lefts[0]).to(dev), torch.from_numpy(rights[0]).to(dev)
+    fns = {"y": tiling.match_pair_tiled, "x": tiling.match_pair_tiled_x,
+           "d": dshard.match_pair_dsharded}
+    report = {}
+    for label, preset, change, axis, _ in TILE_CASES:
+        cfg = get_preset(preset).replace(**change)
+        if axis == "batch":
+            want = torch.stack([pipeline.match_pair(torch.from_numpy(a).to(dev),
+                                                    torch.from_numpy(b).to(dev), cfg)
+                                for a, b in zip(lefts, rights)])
+            run = lambda: distributed.run_batch_distributed(lefts, rights, cfg, m22)  # noqa: E731
+            owned = len(m22.local_shards())
+        else:
+            want = pipeline.match_pair(l, r, cfg)
+            run = lambda: fns[axis](l, r, cfg, m4)  # noqa: E731
+            owned = len(m4.local_shards())
+        torch.cuda.synchronize()
+        for m in kernels.values():
+            m.launches = 0
+        before = dict(collectives.sent_bytes)
+        dist.barrier()
+        shards = run()
+        torch.cuda.synchronize()
+        launches = {k: m.launches for k, m in kernels.items()}
+        sent = {k: v - before.get(k, 0) for k, v in collectives.sent_bytes.items()
+                if v - before.get(k, 0)}
+        if len(shards) != owned:
+            raise SystemExit(f"{label}: rank {rank} got {len(shards)} shards, owns {owned}")
+        for s in shards:
+            if not torch.equal(s.data, want[s.index]):
+                raise SystemExit(f"{label}: rank {rank}'s shard {s.index} differs from the "
+                                 f"unsharded map on {int((s.data != want[s.index]).sum())} "
+                                 "pixels")
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            dist.barrier()
+            times.append(1e3 * (time.perf_counter() - t0))
+        report[label] = {"launches": launches, "shards": owned, "bytes": sent,
+                         "ms": float(np.median(times))}
+    dist.destroy_process_group()
+    Path(out, f"{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def tile_processes_phase(card: str, sharded: dict) -> None:
+    """Phase 9: TILE_CASES over 4 worker processes on cuda:0 over gloo
+    (NCCL refuses two ranks on one card) and, where there are two cards or
+    more, over NCCL with one card per process; fails on a worker's nonzero
+    exit, its timeout or launches other than phase 8's."""
+    import socket
+    import tempfile
+
+    import torch
+
+    runs = [("gloo", TILE_WORKERS)]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs.append(("nccl", TILE_WORKERS if cards >= TILE_WORKERS else 2))
+    else:
+        print(f"tile across processes over NCCL: not run: {cards} card visible, and NCCL "
+              "refuses two ranks on one card", flush=True)
+    for backend, nproc in runs:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        out = tempfile.mkdtemp(prefix="chip_smoke_tile_")
+        t0 = time.perf_counter()
+        logs = [Path(out, f"{rank}.log") for rank in range(nproc)]
+        procs = []
+        try:
+            for rank, log in enumerate(logs):
+                with open(log, "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()), "--tile-worker",
+                         str(rank), str(nproc), str(port), backend, out],
+                        stdout=f, stderr=subprocess.STDOUT))
+            # the first worker to fail ends the phase: the others would wait
+            # for it in their exchanges
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.perf_counter() - t0 < TILE_WORKER_TIMEOUT_S):
+                time.sleep(0.2)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        # a worker that failed first, else one that was killed
+        for rank in sorted(range(nproc), key=lambda i: procs[i].returncode < 0):
+            proc, log = procs[rank], logs[rank]
+            if proc.returncode != 0:
+                fail(f"tile {backend}: worker {rank} exited {proc.returncode} (killed at the "
+                     f"first failure or the {TILE_WORKER_TIMEOUT_S} s timeout):\n"
+                     f"{log.read_text()[-3000:]}")
+        reports = [json.loads(Path(out, f"{rank}.json").read_text()) for rank in range(nproc)]
+        wall_s = time.perf_counter() - t0
+        for label, _, _, axis, key in TILE_CASES:
+            rows = [rep[label] for rep in reports]
+            launches = {k: sum(row["launches"][k] for row in rows) for k in rows[0]["launches"]}
+            if launches != {k: 4 if k == key else 0 for k in launches}:
+                fail(f"tile {backend}: {label} launched {launches} over {nproc} processes, "
+                     f"expected {key} 4 (phase 8's)")
+            for rank, row in enumerate(rows):
+                if row["launches"][key] != row["shards"]:
+                    fail(f"tile {backend}: {label} rank {rank} launched {key} "
+                         f"{row['launches'][key]} times for its {row['shards']} shards")
+            sent = {}
+            for row in rows:
+                for kind, n in row["bytes"].items():
+                    sent[kind] = sent.get(kind, 0) + n
+            one = sharded.get("kitti_batch 2x2" if axis == "batch" else label, {}).get("ms")
+            print(f"tile {backend} {label} 1242x375 D=128 over {nproc} processes on {card} "
+                  f"({'one card, the processes take turns on it and gloo stages every byte '
+                     'through the host: not a multi-card time' if backend == 'gloo' else
+                     'one card per process'}): every shard equals the unsharded map bit for "
+                  f"bit; {key} launches {launches[key]} (one per shard); {rows[0]['ms']:.3f} ms "
+                  f"per pair" + (f" against {one:.3f} ms in one process (phase 8)" if one else "")
+                  + "; bytes sent between processes: "
+                  + (", ".join(f"{kind} {n}" for kind, n in sorted(sent.items())) or "none"),
+                  flush=True)
+        print(f"tile {backend}: {nproc} workers, {wall_s:.1f} s from spawn to exit", flush=True)
+
+
 def main() -> int:
     sys.path.insert(0, str(HERE))
     try:
@@ -1572,6 +1755,9 @@ def main() -> int:
     # ---- 8. the sharded layouts -----------------------------------------
     sharded = sharded_phase(card, dev, reset, launched)
 
+    # ---- 9. one pair's tile axis across processes -----------------------
+    tile_processes_phase(card, sharded)
+
     def row(name, source, replaces, launches, err, geo, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, **times[geo],
@@ -1601,4 +1787,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tile-worker"]:
+        rank, nproc, port = (int(a) for a in sys.argv[2:5])
+        sys.exit(tile_worker(rank, nproc, port, *sys.argv[5:7]))
     sys.exit(main())

@@ -2,12 +2,13 @@
 runner (``parallel.distributed``), as tests/test_distributed.py runs the
 reference's.
 
-Each process brings up the group with ``initialize(host:port, 2, rank)``,
-builds the global mesh over 4 CPU devices of its own (data 2 across the
-processes, tile 4 within each), matches its half of a batch of 16 pairs
-(32x48, D=8) and checks every local result shard against the port's
-unsharded ``match_pair`` bit for bit.  A tile axis spanning the processes
-(the reference's 8-device d-shard) raises.  Runs as subprocesses on a free
+Each process brings up the group with ``initialize(host:port, 2, rank,
+backend="gloo")``, builds the global mesh over 4 CPU devices of its own
+(data 2 across the processes, tile 4 within each), matches its half of a
+batch of 16 pairs (32x48, D=8) and checks every local result shard against
+the port's unsharded ``match_pair`` bit for bit.  A tile axis of 8 spans
+the processes: each owns its 4 entries (the layouts over it are
+tests/test_torch_distributed_tile.py's).  Runs as subprocesses on a free
 port, so the test process keeps no process group.
 """
 
@@ -30,7 +31,7 @@ _WORKER = textwrap.dedent(
     from aswstereomatch_torch.utils import synthetic
 
     pid = int(sys.argv[1])
-    distributed.initialize("127.0.0.1:{port}", num_processes=2, process_id=pid)
+    distributed.initialize("127.0.0.1:{port}", num_processes=2, process_id=pid, backend="gloo")
     distributed.initialize("127.0.0.1:{port}", num_processes=2, process_id=pid)  # no-op
     assert dist.get_world_size() == 2 and dist.get_rank() == pid
     assert dist.get_backend() == "gloo"
@@ -47,7 +48,8 @@ _WORKER = textwrap.dedent(
     cpu = [torch.device("cpu")] * 4
     m = distributed.global_mesh(tile=4, devices=cpu)  # data=2 across processes
     assert m.shape == {"data": 2, "tile": 4}, m.shape
-    assert (m.processes, m.process_index) == (2, pid)
+    assert m.ranks.tolist() == [[0] * 4, [1] * 4] and m.rank == pid
+    assert m.local_shards() == [(pid, k) for k in range(4)]
     shards = distributed.run_batch_distributed(lefts, rights, cfg, m)
     assert len(shards) == 4
     covered = set()
@@ -62,12 +64,11 @@ _WORKER = textwrap.dedent(
             covered.update((bi, y) for y in range(rows.start, rows.stop))
     assert covered == {(b, y) for b in range(8 * pid, 8 * pid + 8) for y in range(32)}
 
-    # one pair's tile axis over both processes' devices is not ported
-    try:
-        distributed.global_mesh(tile=8, devices=cpu)
-        raise SystemExit("a tile axis across processes did not raise")
-    except ValueError as e:
-        assert "spans processes" in str(e) and "ROADMAP.md" in str(e), e
+    # one pair's tile axis over both processes' devices
+    span = distributed.global_mesh(tile=8, devices=cpu)
+    assert span.shape == {"data": 1, "tile": 8}, span.shape
+    assert span.owners(0) == [(0, cpu[0])] * 4 + [(1, cpu[0])] * 4
+    assert span.local_shards() == [(0, 4 * pid + k) for k in range(4)] and not span.is_local
 
     # the group works: the processes agree on the pairs matched
     n = torch.tensor([sum(s.data.shape[0] for s in shards if s.index[1].start == 0)])

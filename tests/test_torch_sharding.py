@@ -256,7 +256,7 @@ def test_config_driven_sharded_api(pair96):
     assert not api.layout_fits(port(CFG_FULL))
 
 
-def test_sharded_api_fallback_warns(pair96):
+def test_sharded_api_fallback_warns(pair96, monkeypatch):
     cfg = port(CFG_FULL.replace(mesh_data=16, mesh_tile=16))  # > 8 devices
     with pytest.warns(UserWarning, match="running unsharded"):
         fn = api.sharded_match_fn(cfg, [CPU] * 8)
@@ -264,20 +264,35 @@ def test_sharded_api_fallback_warns(pair96):
     assert out.shape == pair96["gt"].shape
     with pytest.warns(UserWarning, match="16x16 mesh but only 8 device"):
         assert api.sharded_batch_fn(cfg, [CPU] * 8).func is pipeline.match_batch
-    # without a device list: every visible card, or the CPU where there is none
-    assert mesh.default_devices() == (mesh.visible_cards() or [CPU])
+    # without a device list: every visible card; with none visible the
+    # defaults raise and name the way to ask for the CPU
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    asks = r'devices=\[torch.device\("cpu"\)\]'
+    cfg22 = port(CFG_FULL.replace(mesh_data=2, mesh_tile=2))
+    for default in (mesh.default_devices, lambda: api.layout_fits(cfg22),
+                    lambda: api.sharded_match_fn(cfg22), lambda: api.sharded_batch_fn(cfg22),
+                    distributed.global_mesh, lambda: distributed.global_mesh(tile=2)):
+        with pytest.raises(ValueError, match=asks):
+            default()
 
 
 def test_global_mesh_tile_across_processes_raises():
-    """Without a process group the global mesh is this process's; a tile
-    axis wider than the local devices would span processes: refused, with
-    the ROADMAP item that will carry it."""
+    """Without a process group the global mesh is this process's, every
+    owner rank 0; ``tile`` shrinks to a count that divides the devices, as
+    the reference's does.  A mesh over owners of other ranks spans
+    processes: this process owns only its entries (the multi-process runs
+    are tests/test_torch_distributed_tile.py's)."""
     g = distributed.global_mesh(tile=4, devices=[CPU] * 8)
-    assert (g.processes, g.process_index) == (1, 0)
-    assert g.shape == {"data": 2, "tile": 4} and g.local.devices.shape == (2, 4)
+    assert g.shape == {"data": 2, "tile": 4} and g.devices.shape == (2, 4)
+    assert g.owners(1) == [(0, CPU)] * 4 and g.is_local and len(g.local_shards()) == 8
+    assert distributed.global_devices([CPU] * 2) == [(0, CPU)] * 2
     assert distributed.global_mesh(tile=3, devices=[CPU] * 8).shape == {"data": 4, "tile": 2}
-    with pytest.raises(ValueError, match="spans processes.*ROADMAP.md"):
-        distributed.global_mesh(tile=8, devices=[CPU] * 4)
+    assert distributed.global_mesh(tile=8, devices=[CPU] * 4).shape == {"data": 1, "tile": 4}
+    assert distributed.global_mesh(devices=[CPU] * 4).shape == {"data": 1, "tile": 4}
+    span = mesh.build_mesh(2, 2, [(0, CPU), (1, CPU), (1, CPU), (2, "cpu")])
+    assert span.shape == {"data": 2, "tile": 2} and span.ranks.tolist() == [[0, 1], [1, 2]]
+    assert span.owners(0) == [(0, CPU), (1, CPU)] and span.owners(1)[1] == (2, CPU)
+    assert span.local_shards() == [(0, 0)] and not span.is_local
 
 
 def test_run_batch_distributed_one_process(pair96):
