@@ -1,2 +1,6 @@
-"""The port's long-lived entry points: the serving daemon (``serve``) and
-the resumable dataset sweep (``sweep``); run each with ``python -m``."""
+"""The port's tools, each run with ``python -m``: the long-lived entry
+points, the serving daemon (``serve``) and the resumable dataset sweep
+(``sweep``); and the accuracy and validation tools (``card_fuzz``,
+``fuzz_pipeline``, ``flagship_sharded_check``, ``run_baseline_configs``,
+``pin_sep_accuracy``, ``sym_vs_leftonly``, ``compare_opencv``,
+``refuse_curve``, ``dataset_roundtrip``), which share ``common``."""

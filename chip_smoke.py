@@ -123,7 +123,30 @@ per kernel or path; any failure exits non-zero:
                phase 8's, one per shard; per-layout times and the bytes
                each exchange sent between processes are printed.  With two
                cards or more the same runs over NCCL, one card per
-               process; otherwise it prints that NCCL was not run.
+               process; otherwise it prints that NCCL was not run;
+ 10. tools   — the port's accuracy and validation tools
+               (aswstereomatch_torch/tools/) run in this process on
+               cuda:0, one line each with its time and the kernels'
+               launches read around it: card_fuzz (24 trials from seed
+               5000 and 6 d-window trials from 105000: kernel route vs
+               eager, launches equal to kernel_for's prediction),
+               fuzz_pipeline (12 trials from seed 1000), the flagship
+               sharded check at 1242x375 D=128 r=16 (every row exact),
+               run_baseline_configs, pin_sep_accuracy (seeds 0 1 2,
+               symmetric and left-only), sym_vs_leftonly, compare_opencv
+               (smooth at the five scene geometries, hard at kitti and
+               venus) and refuse_curve (kitti, venus; seeds 7 8), both
+               without their cv2 rows where cv2 does not import, and
+               dataset_roundtrip (the five scenes, a CLI child process
+               each).  The accuracy rows are held to the reference's
+               records in bench_results/ at each tool's bars; the
+               separable symmetric mode must meet SEP_CONTRACT, the
+               left-only mode too unless the reference's own record
+               misses it.  A tool fails on a missed bar, a kernel its
+               configs route to that never launched, or a launch of any
+               other; after all eleven runs (pin_sep_accuracy and
+               compare_opencv run twice) the phase fails if any did.
+               Records go to results_torch/.
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
@@ -1272,6 +1295,137 @@ def tile_processes_phase(card: str, sharded: dict) -> None:
         print(f"tile {backend}: {nproc} workers, {wall_s:.1f} s from spawn to exit", flush=True)
 
 
+def tools_phase(card: str, kernels: dict) -> None:
+    """Phase 10: the port's accuracy and validation tools
+    (aswstereomatch_torch/tools/) in this process on cuda:0 at their full
+    geometries, each one's kernel launches read around it.  A tool fails on
+    a missed bar, a kernel its configs route to that did not launch, or a
+    launch of another; every tool runs, then the phase fails if any did."""
+    import torch
+
+    from aswstereomatch_torch.tools import (card_fuzz, common, compare_opencv,
+                                            dataset_roundtrip, flagship_sharded_check,
+                                            fuzz_pipeline, pin_sep_accuracy, refuse_curve,
+                                            run_baseline_configs, sym_vs_leftonly)
+
+    dev = torch.device("cuda", 0)
+    try:
+        compare_opencv.import_cv2()
+        use_cv2 = True
+    except ImportError:
+        use_cv2 = False
+    print("tools: cv2 " + ("imports: compare_opencv and refuse_curve run with the cv2 rows"
+                           if use_cv2 else "does not import: compare_opencv and refuse_curve "
+                           "run with --no-cv2 (no cv2 rows)"), flush=True)
+    out = HERE / "results_torch"
+    quiet = lambda *a, **k: None  # noqa: E731
+    failed = []
+
+    def checks_ok(rec) -> str:
+        return "" if rec["ok"] else "accuracy bars missed"
+
+    def sep_ok(rec, record) -> str:
+        # The symmetric mode must meet SEP_CONTRACT; a mode whose reference
+        # record misses it too (left-only) must give the reference's verdict.
+        want = pin_sep_accuracy.verdict(common.reference_rows(record))["pass"]
+        v = rec["verdict"]
+        bad = [] if rec["ok"] else ["accuracy bars missed"]
+        if not (v["pass"] or (rec["left_only"] and not want)):
+            bad.append(f"verdict {v['line']}; the reference's record: "
+                       f"{'PASS' if want else 'FAIL'}")
+        return "; ".join(bad)
+
+    def tool(name, fn, problem, describe):
+        for m in kernels.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        rec = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: m.launches for k, m in kernels.items()}
+        routed = set(rec["kernels_routed"])
+        why = problem(rec)
+        idle = sorted(k for k in routed if not got[k])
+        other = sorted(k for k, n in got.items() if n and k not in routed)
+        if idle:
+            why += f"; routed to {idle} but they never launched"
+        if other:
+            why += f"; launched {other}, which its configs do not route to"
+        common.write_record(str(out / f"{name}.json"), rec)
+        print(f"tools {name} on {card}: {wall:.1f} s; launches "
+              f"{ {k: n for k, n in got.items() if n} }; {describe(rec)}"
+              + (f"; FAILED: {why.lstrip('; ')}" if why else "; ok"), flush=True)
+        if why:
+            failed.append(name)
+        return rec
+
+    t_phase = time.perf_counter()
+    tool("card_fuzz", lambda: card_fuzz.run(dev, 24, 6, 5000, progress=quiet),
+         lambda r: "" if not r["failures"] else "; ".join(
+             x["line"] for x in r["rows"] if x["status"] == "FAIL"),
+         lambda r: f"24 + 6 trials from seeds 5000 / 105000: {r['ok']} ok, "
+                   f"{r['skipped_eager_routed']} skipped (eager-routed), {r['failures']} "
+                   "failures" + ("" if r["failures"] else
+                                 ", launches equal to kernel_for's prediction in every trial"))
+    tool("fuzz_pipeline", lambda: fuzz_pipeline.run(dev, 12, 1000, progress=quiet),
+         lambda r: "; ".join(x["line"] for x in r["rows"] if x["status"] == "FAIL"),
+         lambda r: f"12 trials from seed 1000, {r['failures']} failures ("
+                   + ", ".join(f"{x['seed']}:{'+'.join(x['checks'])}" for x in r["rows"]) + ")")
+    tool("sharded_flagship", lambda: flagship_sharded_check.run_checks(dev, progress=quiet),
+         lambda r: "" if r["all_exact"] else "not exact: " + ", ".join(
+             f"{x['layout']} ({x['differing_pixels']} px)" for x in r["rows"] if not x["exact"]),
+         lambda r: "1242x375 D=128 r=16: " + ", ".join(
+             f"{x['layout']} [{x['route']}] {'exact' if x['exact'] else 'DIFFERS'} "
+             f"{x['wall_s']:.2f} s" for x in r["rows"]))
+
+    def accuracy(r):
+        return common.summary(r["checks"])
+
+    tool("baseline_configs", lambda: run_baseline_configs.run(dev, progress=quiet), checks_ok,
+         lambda r: "; ".join(f"{x['preset']}/{x['geometry']} {x['pairs_per_s']} pairs/s "
+                             f"({x['pairs_per_s_queued']} queued) bad_2 {x['bad_2']} epe "
+                             f"{x['epe']}" for x in r["rows"])
+         + f"; against bench_results/baseline_configs.json: {accuracy(r)}")
+    for left_only, name, record in ((False, "sep_vs_exact_kitti", "sep_vs_exact_kitti.json"),
+                                    (True, "seplo_vs_exact_kitti", "seplo_vs_exact_kitti.json")):
+        tool(name, lambda: pin_sep_accuracy.run(dev, (0, 1, 2), left_only=left_only,
+                                                progress=quiet),
+             lambda r, record=record: sep_ok(r, record),
+             lambda r: f"seeds 0 1 2: {r['verdict']['line']}; rows (regime/seed: delta, "
+                       "on-exact-correct, GT cost): " + ", ".join(
+                           f"{x['regime']}/{x['seed']}: {x['delta_bad2_vs_exact']} "
+                           f"{x['delta_bad2_on_exact_correct']} {x['gt_bad2_cost']}"
+                           for x in r["rows"]) + f"; against {record}: {accuracy(r)}")
+    tool("symmetric_vs_leftonly", lambda: sym_vs_leftonly.run(dev, progress=quiet), checks_ok,
+         lambda r: "; ".join(f"{x['geometry']} {'sym' if x['symmetric'] else 'lo'} "
+                             f"{x['pairs_per_s']} pairs/s ({x['pairs_per_s_queued']} queued) "
+                             f"bad_2 {x['bad_2']}" for x in r["rows"])
+         + f"; against bench_results/symmetric_vs_leftonly.json: {accuracy(r)}")
+    for regime, geoms in (("smooth", ["tsukuba", "venus", "teddy", "cones", "kitti"]),
+                          ("hard", ["kitti", "venus"])):
+        tool(f"opencv_compare_{regime}",
+             lambda: compare_opencv.run(geoms, dev, regime, use_cv2, progress=quiet), checks_ok,
+             lambda r: f"cv2 {r['cv2']}; {len(r['rows'])} rows; against "
+                       f"bench_results/opencv_compare*.json: {accuracy(r)}")
+    tool("refuse_curve", lambda: refuse_curve.run(["kitti", "venus"], [7, 8], dev, use_cv2,
+                                                  progress=quiet), checks_ok,
+         lambda r: f"cv2 {r['cv2']}; {len(r['rows'])} rows, {len(r['matched_coverage'])} "
+                   f"matched-coverage pairs; against bench_results/refuse_curve.json: "
+                   + accuracy(r))
+    tool("dataset_roundtrip", lambda: dataset_roundtrip.run(dev, progress=quiet),
+         lambda r: "" if r["ok"] else "; ".join(
+             f"{x['scene']}: {x.get('cli_stderr') or x}" for x in r["rows"] if not x["ok"]),
+         lambda r: "; ".join(
+             f"{x['scene']} ({x['preset']}, {x['gt_format']}): GT decode err "
+             f"{x['gt_decode_max_err']}, CLI exit {x['cli_returncode']}, bad_2 CLI "
+             f"{x.get('metrics', {}).get('bad_2')} / in-process "
+             f"{x.get('in_process_metrics', {}).get('bad_2')}" for x in r["rows"]))
+    print(f"tools: {time.perf_counter() - t_phase:.1f} s for phase 10; records in {out}",
+          flush=True)
+    if failed:
+        fail(f"tools: {', '.join(failed)} failed")
+
+
 def main() -> int:
     sys.path.insert(0, str(HERE))
     try:
@@ -1757,6 +1911,9 @@ def main() -> int:
 
     # ---- 9. one pair's tile axis across processes -----------------------
     tile_processes_phase(card, sharded)
+
+    # ---- 10. the accuracy and validation tools --------------------------
+    tools_phase(card, kernels)
 
     def row(name, source, replaces, launches, err, geo, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
