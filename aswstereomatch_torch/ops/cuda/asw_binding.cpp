@@ -3,9 +3,9 @@
 // asw_sep_wta (separable ASW, asw_sep_kernel.cu), asw_dlanes_wta (left-only
 // ASW or box, asw_dlanes_kernel.cu), asw_sym_dlanes_wta (symmetric ASW,
 // asw_sym_dlanes_kernel.cu) and sgm_aggregate (semi-global aggregation,
-// sgm_kernel.cu).  Each checks its inputs, allocates the outputs (and any
-// scratch) and launches on the current CUDA stream; a launch error
-// raises.  They have only a CUDA implementation: CPU tensors take the plain
+// sgm_kernel.cu).  Each checks its inputs, allocates the outputs and
+// launches on the current CUDA stream (sgm_aggregate writes into the
+// scratch its wrapper allocated); a launch error raises.  They have only a CUDA implementation: CPU tensors take the plain
 // PyTorch versions in the ops/cuda/*.py wrappers before they get here.
 
 #include <ATen/core/Tensor.h>
@@ -48,9 +48,9 @@ extern "C" int asw_sym_dlanes_wta_launch(
     float tau_grad, float inv_gamma_color, int ty, int tx, int dc, int kx, int smem_bytes,
     int* bestd, float* bestc, float* cm, float* cp, float* ubest,
     unsigned long long* rpack, int* rbestd, void* stream);
-extern "C" long long sgm_scratch_floats(int H, int W, int D, int paths);
-extern "C" int sgm_aggregate_launch(const float* C, float* S, float* scratch, int H,
-                                    int W, int D, int paths, float p1, float p2,
+extern "C" int sgm_aggregate_launch(const float* C, float* S, float* scratch,
+                                    long long scratch_floats, int H, int W, int D, float p1,
+                                    float p2, const long long* plan, int plan_len,
                                     void* stream);
 extern "C" const char* asw_error_string(int err);
 
@@ -233,22 +233,23 @@ Planes asw_sym_dlanes_wta(const at::Tensor& ls, const at::Tensor& rs,
   return o.planes();
 }
 
-at::Tensor sgm_aggregate(const at::Tensor& vol, int64_t paths, double p1, double p2) {
+at::Tensor sgm_aggregate(const at::Tensor& vol, const at::Tensor& scratch, double p1,
+                         double p2, at::IntArrayRef plan) {
   check_input(vol, "vol", 3);
-  TORCH_CHECK(paths == 4 || paths == 8, "paths must be 4 or 8");
+  check_input(scratch, "scratch", 1);
+  TORCH_CHECK(scratch.device() == vol.device(), "scratch must be on the volume's device");
   const int64_t H = vol.size(0), W = vol.size(1), D = vol.size(2);
   TORCH_CHECK(H >= 1 && W >= 1 && D >= 1, "empty cost volume");
-  TORCH_CHECK(H + W < (int64_t)1 << 31 && D < (int64_t)1 << 30, "cost volume too large");
+  TORCH_CHECK(H + W < (int64_t)1 << 29 && D < (int64_t)1 << 30, "cost volume too large");
   c10::cuda::CUDAGuard guard(vol.device());
   at::Tensor out = at::empty_like(vol);
-  const long long nscratch = sgm_scratch_floats((int)H, (int)W, (int)D, (int)paths);
-  at::Tensor scratch;
-  if (nscratch > 0) scratch = at::empty({(int64_t)nscratch}, vol.options());
+  const std::vector<long long> p(plan.begin(), plan.end());
   const int err = sgm_aggregate_launch(
       vol.data_ptr<float>(), out.data_ptr<float>(),
-      nscratch > 0 ? scratch.data_ptr<float>() : nullptr, (int)H, (int)W, (int)D,
-      (int)paths, (float)p1, (float)p2, stream_of(vol));
-  TORCH_CHECK(err == 0, "sgm_aggregate launch failed: ", asw_error_string(err));
+      scratch.numel() > 0 ? scratch.data_ptr<float>() : nullptr, (long long)scratch.numel(),
+      (int)H, (int)W, (int)D, (float)p1, (float)p2, p.data(), (int)p.size(), stream_of(vol));
+  TORCH_CHECK(err == 0, "sgm_aggregate launch failed (plan ", plan, "): ",
+              asw_error_string(err));
   return out;
 }
 
@@ -275,7 +276,9 @@ TORCH_LIBRARY(asw_torch, m) {
       "int cost_ad, float alpha, float one_minus_alpha, float tau_color, "
       "float tau_grad, float inv_gamma_color, int[] plan) "
       "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
-  m.def("sgm_aggregate(Tensor vol, int paths, float p1, float p2) -> Tensor");
+  m.def(
+      "sgm_aggregate(Tensor vol, Tensor(a!) scratch, float p1, float p2, int[] plan) "
+      "-> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {

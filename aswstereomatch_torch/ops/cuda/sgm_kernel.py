@@ -4,8 +4,17 @@ Counterpart of the reference's ``aggregate_sgm`` (``aswstereomatch_tpu/ops/
 aggregate.py``), which runs its scans as XLA ``lax.scan``s, not Pallas.  The
 kernel is hand-written CUDA (``sgm_kernel.cu``, bound as
 ``torch.ops.asw_torch.sgm_aggregate`` by ``asw_binding.cpp``, built by
-``build.py``): one warp per scanline of one direction, the directions
-launched in the pinned order, each adding its L into S.
+``build.py``).  It runs the directions in phases, one launch each: in each
+group of four directions of the pinned order, the first three side by side
+(the first writes S, or adds into it, the other two write their L into two
+scratch volumes), then the fourth, which completes S as ((S + X1) + X2) + L.
+One warp runs one scanline; at D <= 128 and a multiple of 4 each lane
+keeps its four disparities' L in registers, and the costs (and S and the
+scratch volumes in a completing phase) are staged eight steps ahead into a
+per-warp ring in shared memory; any other D takes the long-D path, whose L
+rows lie in shared or global memory.  ``plan`` computes the phases, their
+work tables, the ring's shared memory and the scratch; the CPU tests check
+it, and a numpy model of the schedule, against the plain version.
 
 The recurrence, per path direction r with predecessor q = p - r (pinned in
 the reference's config.py):
@@ -18,13 +27,15 @@ with L_r = C where p has no in-image predecessor and out-of-range d+-1
 terms +inf.  S sums l2r, r2l, t2b, b2t in that order, then for 8 paths
 (1,1), (1,-1), (-1,1), (-1,-1).  Each step is adds and mins only, so the
 order of the path sum fixes every bit: the kernel equals the plain version
-(and the reference) bit for bit.
+(and the reference) bit for bit, on either path.
 
 On a CUDA tensor ``aggregate`` launches the kernel (and raises if it
 cannot); on a CPU tensor it computes the plain version.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +50,127 @@ launches = 0
 # The directions in the pinned summation order, as (dy, dx): the step from
 # a pixel to the next one on its scanline (the predecessor is p - (dy, dx)).
 DIRECTIONS = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
+
+# What a direction writes in its phase (sgm_kernel.cu's Role): S = L, X1 = L,
+# X2 = L, S = S + L, S = ((S + X1) + X2) + L.
+WRITE_S, WRITE_X1, WRITE_X2, ADD_S, COMPLETE_S = range(5)
+# Volumes one step of each role reads: C, then S, X1, X2 (it writes one).
+ROLE_VOLUMES = (1, 1, 1, 2, 4)
+
+VPL = 4                       # disparities a lane holds on the register path
+REG_MAX_D = 32 * VPL          # the register path's largest D
+SMEM_OPTIN = 232_448          # shared memory an H100 block may opt in to
+ROW_SMEM_BUDGET = 48 * 1024   # the long-D path's two L rows a warp, in shared memory
+DEPTH = 8                     # the register path's ring depth, steps
+WARPS = 4                     # warps (scanlines) per block
+
+
+class Slot(NamedTuple):
+    """One direction of a phase: its step (dy, dx), role and scanlines."""
+    dy: int
+    dx: int
+    role: int
+    n_lines: int
+
+
+class PhasePlan(NamedTuple):
+    """One launch: its slots in hand-out order (warp g takes line g -
+    first[j] of slot j), the volumes a ring slot holds and the block's
+    dynamic shared memory."""
+    slots: tuple
+    nvol: int
+    smem_bytes: int
+
+
+class Plan(NamedTuple):
+    """The kernel's schedule.  ``vpl``: disparities per lane on the register
+    path (VPL), 0 for the long-D path; ``scratch_volumes`` (H, W, D)
+    float32 volumes and ``row_floats`` floats of global L rows (the long-D
+    path past ROW_SMEM_BUDGET), which the wrapper allocates."""
+    vpl: int
+    scratch_volumes: int
+    row_floats: int
+    phases: tuple
+
+    def ints(self) -> list:
+        """The flat form the binding takes (sgm_kernel.cu's plan layout)."""
+        out = [self.vpl, self.scratch_volumes, self.row_floats, len(self.phases)]
+        for ph in self.phases:
+            out += [len(ph.slots), ph.nvol, ph.smem_bytes]
+            for k in range(3):
+                out += list(ph.slots[k]) if k < len(ph.slots) else [0, 0, 0, 0]
+        return out
+
+    def scratch_floats(self, H: int, W: int, D: int) -> int:
+        return self.scratch_volumes * H * W * D + self.row_floats
+
+    def volumes_moved(self) -> int:
+        """(H, W, D) volumes read and written: 3 P - 1 for P paths."""
+        return sum(ROLE_VOLUMES[s.role] + 1 for ph in self.phases for s in ph.slots)
+
+
+def lines_of(H: int, W: int, dy: int, dx: int) -> int:
+    """Scanlines of direction (dy, dx): rows, columns or H + W - 1 diagonals."""
+    return H if dy == 0 else (W if dx == 0 else H + W - 1)
+
+
+def longest_line(H: int, W: int, dy: int, dx: int) -> int:
+    return W if dy == 0 else (H if dx == 0 else min(H, W))
+
+
+def schedule(paths: int) -> tuple:
+    """The phases as ((direction index, role), ...): in each group of four
+    directions of the pinned order the first three side by side, the first
+    of them writing S (adding into it after the first group), then the
+    fourth completing S."""
+    out = []
+    for g in range(0, paths, 4):
+        out.append(((g, ADD_S if g else WRITE_S), (g + 1, WRITE_X1), (g + 2, WRITE_X2)))
+        out.append(((g + 3, COMPLETE_S),))
+    return tuple(out)
+
+
+def plan(H: int, W: int, D: int, paths: int, *, vpl: int | None = None) -> Plan:
+    """The kernel's plan for an (H, W, D) volume and 4 or 8 paths.  Each
+    phase's slots go longest scanlines first.  On the register path (D <=
+    REG_MAX_D and a multiple of VPL) a ring slot holds the most volumes a
+    slot of the phase reads, DEPTH steps of them.  The long-D path (any
+    other D, or ``vpl=0`` at any D) keeps its L rows in shared memory while
+    2 (D + 2) floats a warp fit ROW_SMEM_BUDGET, else in global rows after
+    the scratch volumes."""
+    if paths not in (4, 8):
+        raise ValueError("sgm_paths must be 4 or 8")
+    if vpl is None:
+        vpl = VPL if D <= REG_MAX_D and D % VPL == 0 else 0
+    if vpl not in (0, VPL) or (vpl and (D > REG_MAX_D or D % VPL)):
+        raise ValueError(f"the register path takes D <= {REG_MAX_D}, a multiple of {VPL}")
+    row_bytes = 4 * 2 * (D + 2)
+    rows_global = not vpl and row_bytes > ROW_SMEM_BUDGET
+    phases, most_lines = [], 0
+    for group in schedule(paths):
+        slots = [Slot(*DIRECTIONS[j], role, lines_of(H, W, *DIRECTIONS[j])) for j, role in group]
+        slots.sort(key=lambda s: -longest_line(H, W, s.dy, s.dx))
+        nvol = max(ROLE_VOLUMES[s.role] for s in slots)
+        most_lines = max(most_lines, sum(s.n_lines for s in slots))
+        if vpl:
+            smem = WARPS * DEPTH * nvol * 32 * vpl * 4
+        else:
+            smem = 0 if rows_global else WARPS * row_bytes
+        phases.append(PhasePlan(tuple(slots), nvol, smem))
+    row_floats = most_lines * 2 * (D + 2) if rows_global else 0
+    return Plan(vpl, 2, row_floats, tuple(phases))
+
+
+def _check_plan(p: Plan, H: int, W: int, D: int, paths: int) -> None:
+    """Raise unless ``p`` runs each direction of ``paths`` once over (H, W,
+    D), in the phases and roles of ``schedule``, with two scratch volumes:
+    a plan that does not sum every path in the pinned order is no SGM."""
+    got = [sorted((s.dy, s.dx, s.role, s.n_lines) for s in ph.slots) for ph in p.phases]
+    want = [sorted((*DIRECTIONS[j], role, lines_of(H, W, *DIRECTIONS[j])) for j, role in group)
+            for group in schedule(paths)]
+    if got != want or p.scratch_volumes != 2:
+        raise ValueError(f"the plan does not run the {paths}-path schedule over "
+                         f"({H}, {W}, {D}): {got}")
 
 
 def _check(vol: torch.Tensor, cfg: StereoConfig) -> None:
@@ -126,22 +258,37 @@ def aggregate_reference(vol: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
     return s.to(torch.float32).contiguous()
 
 
-def aggregate(vol: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+def aggregate(vol: torch.Tensor, cfg: StereoConfig, plan: Plan | None = None) -> torch.Tensor:
     """Semi-global aggregation of a raw (H, W, D) float32 cost volume:
     the plain version for a CPU tensor, the kernel for a CUDA tensor; any
-    other device raises."""
+    other device raises.  ``plan`` overrides ``plan(...)``, e.g. to take the
+    long-D path at a small D; it must run ``cfg``'s schedule (else
+    ValueError), and then gives the same bits."""
     _check(vol, cfg)
+    if plan is not None:
+        _check_plan(plan, *vol.shape, cfg.sgm_paths)
     if vol.device.type == "cpu":
         return aggregate_reference(vol, cfg)
     if vol.device.type != "cuda":
         raise ValueError(f"no kernel for device {vol.device}")
-    return _launch(vol, cfg)
+    return _run(vol, cfg, plan or _default_plan(vol, cfg.sgm_paths))
 
 
-def _launch(vol: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+def _default_plan(vol: torch.Tensor, paths: int) -> Plan:
+    """``plan`` for ``vol``, on the long-D path where the volume is not
+    16-byte aligned, as the register path's copies need."""
+    return plan(*vol.shape, paths, vpl=None if vol.data_ptr() % 16 == 0 else 0)
+
+
+def _run(vol: torch.Tensor, cfg: StereoConfig, p: Plan) -> torch.Tensor:
+    """Launch plan ``p`` as it is, unchecked: ``aggregate`` after its checks,
+    and the timings of one phase (or part of one) alone, whose sums read
+    whatever S and the scratch hold (utils/plan_sweep.py, chip_smoke.py)."""
     global launches
     build.load()
-    out = torch.ops.asw_torch.sgm_aggregate(
-        vol, cfg.sgm_paths, f32(cfg.sgm_p1), f32(cfg.sgm_p2))
+    H, W, D = vol.shape
+    scratch = torch.empty(p.scratch_floats(H, W, D), dtype=torch.float32, device=vol.device)
+    out = torch.ops.asw_torch.sgm_aggregate(vol, scratch, f32(cfg.sgm_p1), f32(cfg.sgm_p2),
+                                            p.ints())
     launches += 1
     return out

@@ -28,8 +28,11 @@ per kernel or path; any failure exits non-zero:
                n_valid_cols < W, a d_window, the right-view strip, alone
                and together, in each mode, also at D = 160) at the same
                bars, the strip's d exact where its cost is finite; SGM bit
-               for bit over SGM_SMALL_CASES (H = 1, W = 1, D from 1 to 256
-               and 6200, zero and other penalties, 4 and 8 paths);
+               for bit over SGM_SMALL_CASES (H = 1, W = 1, D from 1 to 128,
+               the register path's limit, and past it to 6200, blocks that
+               mix directions, zero and other penalties, 4 and 8 paths),
+               each under the default plan and, where that is the
+               register path, the long-D path too (sgm_check_plans);
   4. full    — the same comparison at full width: K1 on a synthetic 450x375
                pair, D=64, r=16, on kitti_tiled's config at 1242x375,
                D=128, and in box mode at tsukuba_ad_box's 384x288, D=16,
@@ -42,7 +45,8 @@ per kernel or path; any failure exits non-zero:
                equals K1 over the same stacks bit for bit, all six planes,
                at every K4 geometry (the small cases and both pairs); SGM
                bit for bit over the port's raw cost volume of the 1242x375
-               pair (kitti_sgm, D=128), 4 and 8 paths;
+               pair (kitti_sgm, D=128), 4 and 8 paths, under the same
+               three plans;
   5. serve   — each path through StereoMatcher: middlebury_asw_full answers
                three uint8 requests and a batch of two, then kitti_tiled's
                config one 1242x375 D=128 pair (K1); kitti_sep three 1242x375
@@ -79,7 +83,10 @@ per kernel or path; any failure exits non-zero:
                timed against K1 on its function; K2's, K3's and K4's tile
                plans, and K2's peak allocation of one end-to-end call;
                the SGM kernel and its plain version over kitti_sgm's raw
-               cost volume (4 and 8 paths), that volume's build, and
+               cost volume (4 and 8 paths), each of its phases launched
+               alone, its rate over the 3 P - 1 volumes it moves
+               (sgm_schedule_bytes) and its share of their floor, the
+               kernel call's peak allocation, that volume's build, and
                kitti_sgm end to end with its peak allocation;
   7. entry   — the user's entry points at 1242x375 D=128, launch counts
                read around each: whether the native codec built (the
@@ -310,11 +317,14 @@ K4_FULL_CASES = [
 ]
 
 # The SGM kernel's phase-3 geometries: (name, (H, W, D), paths, P1, P2) over
-# a random cost volume.  Lines of one pixel (H = 1, W = 1), D = 1 and 2 (no
-# or one d-neighbour), D past one chunk of 32 lanes (33) and past the four
-# register-prefetched chunks (129, 256), other and zero penalties, and
-# D = 6200, whose two L rows outgrow a warp's shared memory and go to the
-# global scratch buffer.
+# a random cost volume.  Lines of one pixel (H = 1, W = 1); on the register
+# path D = 4 (one lane holds disparities, the rest idle), 12 to 40, and
+# D = 128, its limit; D = 1, 2, 5, 33, 97 and 102, not multiples of 4, go
+# to the long-D path, as D = 129 to 6142 do with their L rows in shared
+# memory, and D = 6200, whose two L rows outgrow a warp's shared memory and
+# go to the global scratch; other and zero penalties; H = 3, W = 200, whose
+# phase-A blocks mix rows of two directions with columns (and diagonals of
+# three in phase C).
 SGM_SMALL_CASES = [
     ("sgm_h1", (1, 40, 16), 8, 8.0, 32.0),
     ("sgm_w1", (40, 1, 16), 8, 8.0, 32.0),
@@ -328,6 +338,15 @@ SGM_SMALL_CASES = [
     ("sgm_zero_pen", (20, 28, 12), 8, 0.0, 0.0),
     ("sgm_tall", (50, 7, 40), 4, 3.0, 50.0),
     ("sgm_scratch_d6200", (3, 5, 6200), 8, 8.0, 32.0),
+    ("sgm_mixed_h3", (3, 200, 24), 4, 8.0, 32.0),
+    ("sgm_mixed_h3_8", (3, 200, 40), 8, 3.0, 50.0),
+    ("sgm_d97", (13, 29, 97), 4, 3.0, 50.0),
+    ("sgm_d102", (11, 17, 102), 8, 8.0, 32.0),
+    ("sgm_d128", (10, 23, 128), 8, 3.0, 50.0),
+    ("sgm_d255", (6, 9, 255), 8, 8.0, 32.0),
+    ("sgm_d257", (7, 19, 257), 8, 8.0, 32.0),
+    ("sgm_rows_d6142", (2, 3, 6142), 4, 8.0, 32.0),
+    ("sgm_d4", (17, 23, 4), 8, 3.0, 50.0),
 ]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, the dense rates at
@@ -415,10 +434,33 @@ def sgm_bound(H: int, W: int, cfg) -> tuple:
     return _bound(8.0 * n * cfg.sgm_paths, 0.0, 2 * 4 * n)
 
 
-def check_sgm(name, shape, paths, p1, p2, device) -> None:
-    """The SGM kernel against its plain version on a random (H, W, D) cost
-    volume, bit for bit (both take the reference's adds and mins in its
-    order).  Raises AssertionError."""
+def sgm_schedule_bytes(H: int, W: int, cfg) -> int:
+    """The bytes the SGM kernel's schedule moves: each direction reads C and
+    writes its L once, and the sums read S and the two scratch volumes back
+    in the pinned order, 3 P - 1 (H, W, D) float32 volumes for P paths (11
+    and 23).  No schedule that writes each L to device memory once moves
+    fewer; sgm_bound counts the function's least, 2."""
+    assert cfg.aggregation == "sgm", "the schedule is SGM's"
+    return (3 * cfg.sgm_paths - 1) * 4 * H * W * cfg.max_disparity
+
+
+def sgm_check_plans(H: int, W: int, D: int, paths: int) -> list:
+    """The plans each SGM check runs: the default, and where that is the
+    register path also the long-D path."""
+    from aswstereomatch_torch.ops.cuda import sgm_kernel
+
+    best = sgm_kernel.plan(H, W, D, paths)
+    out = [best]
+    if best.vpl:
+        out.append(sgm_kernel.plan(H, W, D, paths, vpl=0))
+    return out
+
+
+def check_sgm(name, shape, paths, p1, p2, device) -> int:
+    """The SGM kernel under each of sgm_check_plans against its plain
+    version on a random (H, W, D) cost volume, bit for bit (both take the
+    reference's adds and mins in its order).  Returns the launches it
+    made; raises AssertionError."""
     import torch
 
     from aswstereomatch_torch.config import StereoConfig
@@ -429,12 +471,16 @@ def check_sgm(name, shape, paths, p1, p2, device) -> None:
                        sgm_p1=p1, sgm_p2=p2)
     rng = np.random.default_rng(H * 1000 + W + D)
     vol = torch.from_numpy((rng.random(shape) * 40.0).astype(np.float32)).to(device)
-    got = sgm_kernel.aggregate(vol, cfg)
     ref = sgm_kernel.aggregate_reference(vol, cfg)
-    assert got.shape == ref.shape and torch.isfinite(got).all(), f"{name}: bad output"
-    assert torch.equal(got, ref), (
-        f"{name}: differs from the plain version on {int((got != ref).sum())} of "
-        f"{ref.numel()} values, max |diff| {float((got - ref).abs().max())}")
+    plans = sgm_check_plans(H, W, D, paths)
+    for i, plan in enumerate(plans):
+        got = sgm_kernel.aggregate(vol, cfg, None if i == 0 else plan)
+        desc = f"{name} (vpl {plan.vpl})"
+        assert got.shape == ref.shape and torch.isfinite(got).all(), f"{desc}: bad output"
+        assert torch.equal(got, ref), (
+            f"{desc}: differs from the plain version on {int((got != ref).sum())} of "
+            f"{ref.numel()} values, max |diff| {float((got - ref).abs().max())}")
+    return len(plans)
 
 
 def fail(msg: str) -> None:
@@ -1444,7 +1490,7 @@ def main() -> int:
     from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
                                                asw_sym_dlanes_kernel, build, common,
                                                sgm_kernel)
-    from aswstereomatch_torch.utils import evaluate, synthetic
+    from aswstereomatch_torch.utils import evaluate, plan_sweep, synthetic
 
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1502,7 +1548,8 @@ def main() -> int:
         except AssertionError as e:
             fail(f"small SGM {case[0]}: {e}")
     print("small SGM: " + ", ".join(f"{c[0]} ok" for c in SGM_SMALL_CASES)
-          + " (kernel equals plain bit for bit)", flush=True)
+          + " (kernel equals plain bit for bit under the default plan and, where that is "
+          "the register path, the long-D path)", flush=True)
 
     # ---- 4. kernel vs plain at full width -------------------------------
     def full_width(label, cfg, pair, kernel=None):
@@ -1578,14 +1625,18 @@ def main() -> int:
     sgm_err = 0.0
     for paths in (4, 8):
         c = cfg_sgm.replace(sgm_paths=paths)
-        got = sgm_kernel.aggregate(vol_k, c)
         ref = sgm_kernel.aggregate_reference(vol_k, c)
-        if not (torch.isfinite(got).all() and torch.equal(got, ref)):
-            fail(f"full: SGM kitti_sgm {paths} paths differs from its plain version on "
-                 f"{int((got != ref).sum())} of {ref.numel()} values")
-        sgm_err = max(sgm_err, float((got - ref).abs().max()))
+        for i, plan in enumerate(sgm_check_plans(375, 1242, 128, paths)):
+            got = sgm_kernel.aggregate(vol_k, c, None if i == 0 else plan)
+            if not (torch.isfinite(got).all() and torch.equal(got, ref)):
+                fail(f"full: SGM kitti_sgm {paths} paths (vpl {plan.vpl}) differs from "
+                     f"its plain version on "
+                     f"{int((got != ref).sum())} of {ref.numel()} values")
+            sgm_err = max(sgm_err, float((got - ref).abs().max()))
+        del got, ref
     print("full: SGM kitti_sgm 1242x375 D=128, 4 and 8 paths: kernel equals plain bit for "
-          "bit", flush=True)
+          "bit under the default plan and the long-D path",
+          flush=True)
 
     # ---- 5. main paths: matchers serving requests -----------------------
     u8 = lambda a: a.astype(np.uint8)  # noqa: E731  (lossless: 8-bit grid)
@@ -1882,11 +1933,24 @@ def main() -> int:
     for paths in (4, 8):
         c = cfg_sgm.replace(sgm_paths=paths)
         bound_ms, bound_by = sgm_bound(375, 1242, c)
+        plan = sgm_kernel.plan(375, 1242, 128, paths)
         t = times[f"SGM kitti_sgm {paths} paths"] = {
             "ms": _median_ms(lambda: sgm_kernel.aggregate(vol_k, c), 10),
             "plain_ms": _median_ms(lambda: sgm_kernel.aggregate_reference(vol_k, c), 2),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "phase_ms": plan_sweep.sgm_phase_ms(vol_k, c, plan, 10),
         }
+        # computed from the shape, so printed here and not in the kernels line
+        schedule_bytes = sgm_schedule_bytes(375, 1242, c)
+        floor_ms = schedule_bytes / HBM_BYTES * 1e3
+        t["gb_per_s"] = schedule_bytes / (t["ms"] * 1e-3) / 1e9
+        # peak allocation of the kernel call alone, above what the script holds
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sgm_kernel.aggregate(vol_k, c)
+        torch.cuda.synchronize()
+        t["kernel_peak_alloc_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
         m = sgm_m if paths == 4 else sgm8
         lu, ru = u8(pk["left"]), u8(pk["right"])
         t["e2e_ms"] = _median_ms(lambda: m(lu, ru), 3)
@@ -1899,7 +1963,12 @@ def main() -> int:
         t["cost_volume_ms"] = _median_ms(lambda: cost_ops.cost_volume(lk, rk, c), 5)
         print(f"times SGM kitti_sgm 1242x375 D=128 {paths} paths on {card}: kernel "
               f"{t['ms']:.3f} ms (bound {bound_ms:.4f} ms by {bound_by}, "
-              f"{100 * bound_ms / t['ms']:.1f}%); plain {t['plain_ms']:.3f} ms; raw cost "
+              f"{100 * bound_ms / t['ms']:.1f}%; {3 * paths - 1} volumes "
+              f"{schedule_bytes} B at {t['gb_per_s']:.1f} GB/s, {100 * floor_ms / t['ms']:.1f}% "
+              f"of their {floor_ms:.3f} ms floor); phases alone "
+              + " / ".join(f"{x:.3f}" for x in t["phase_ms"])
+              + f" ms; kernel call peak allocation {t['kernel_peak_alloc_mib']:.3f} MiB; "
+              f"plain {t['plain_ms']:.3f} ms; raw cost "
               f"volume {t['cost_volume_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair; "
               f"peak allocation of a call {t['peak_alloc_mib']:.3f} MiB", flush=True)
 

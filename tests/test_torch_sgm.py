@@ -3,9 +3,13 @@
 The plain version (``ops/cuda/sgm_kernel.aggregate_reference``, what the
 wrapper computes for a CPU tensor) against the reference's packed-scan
 ``aggregate_sgm`` bit for bit: the recurrence is adds and mins only, taken
-in the reference's order.  A numpy model of the CUDA kernel's scanline
-schedule (one line per warp, first pixel L = C, directions summed in the
-pinned order) against the plain version bit for bit.  The pipeline against
+in the reference's order.  A numpy model of the CUDA kernel's schedule
+(its plan's phases, one line per warp, first pixel L = C, each lane's
+disparities padded with +inf, the scratch volumes and the completing
+direction's ordered sum) against the plain version bit for bit, and the
+plan itself: each scanline handed out once, the rings within the shared
+memory they ask for, at most two scratch volumes, 3 P - 1 volumes moved;
+a plan off its path count's schedule refused.  The pipeline against
 the reference's jnp path and the loop oracle at tests/test_sgm.py's bars,
 the zero-penalty identity, the hard-regime accuracy claim, the matcher's
 batch and the refusal of y_chunks.
@@ -125,37 +129,61 @@ def _line_start(H, W, dy, dx, i):
     return y, x, (nx if dy == 0 else (ny if dx == 0 else min(ny, nx)))
 
 
-def _kernel_model(vol, paths, p1, p2):
-    """sgm_kernel.cu's schedule in numpy: each direction's scanlines
+def _kernel_model(vol, paths, p1, p2, plan=None):
+    """sgm_kernel.cu's schedule in numpy, phase by phase from the plan
+    (sgm_kernel.plan by default): each slot's scanlines in hand-out order
     (rows, columns, or diagonals from their first in-image pixel), L = C at
-    a line's first pixel, the recurrence over the previous pixel's row with
-    +inf guards at d = -1 and D, and S = L for the first direction, S + L
-    for each later one.  Every pixel lies on exactly one line per
-    direction."""
+    a line's first pixel, and the recurrence over the previous pixel's L as
+    the lanes hold it: 32 x VPL entries, +inf past D, the d -+ 1 neighbours
+    shifted in with +inf at both ends (the long-D path's guarded row, VPL 0,
+    is the same vector at width D).  Each role stores S = L, X1 = L, X2 = L,
+    S = S + L or S = ((S + X1) + X2) + L, reading S, X1 and X2 as the phase
+    before left them (NaN where nothing wrote, as torch.empty may hold);
+    each output element is written at most once a phase, and every
+    direction covers each pixel once."""
     H, W, D = vol.shape
+    plan = plan or sgm_kernel.plan(H, W, D, paths)
+    width = 32 * plan.vpl if plan.vpl else D
     p1, p2 = np.float32(p1), np.float32(p2)
-    S = np.empty_like(vol)
-    for j, (dy, dx) in enumerate(sgm_kernel.DIRECTIONS[:paths]):
-        cover = np.zeros((H, W), int)
-        for i in range(H if dy == 0 else (W if dx == 0 else H + W - 1)):
-            y, x, n = _line_start(H, W, dy, dx, i)
-            prev = None
-            for t in range(n):
-                yy, xx = y + t * dy, x + t * dx
-                cover[yy, xx] += 1
-                c = vol[yy, xx]
-                if t == 0:
-                    v = c
-                else:
-                    pmin = prev.min()
-                    g = np.concatenate([[np.inf], prev, [np.inf]]).astype(np.float32)
-                    best = np.minimum(np.minimum(g[1:-1], pmin + p2),
-                                      np.minimum(g[:-2], g[2:]) + p1)
-                    v = (c + best) - pmin
-                S[yy, xx] = v if j == 0 else S[yy, xx] + v
-                prev = v
-        assert (cover == 1).all(), f"direction {(dy, dx)} does not cover each pixel once"
-    return S
+    inf = np.float32(np.inf)
+    out = {k: np.full_like(vol, np.nan) for k in ("S", "X1", "X2")}
+    target = {sgm_kernel.WRITE_S: "S", sgm_kernel.WRITE_X1: "X1", sgm_kernel.WRITE_X2: "X2",
+              sgm_kernel.ADD_S: "S", sgm_kernel.COMPLETE_S: "S"}
+    for phase in plan.phases:
+        before = {k: v.copy() for k, v in out.items()}
+        written = {k: np.zeros((H, W), int) for k in out}
+        for slot in phase.slots:
+            cover = np.zeros((H, W), int)
+            for i in range(slot.n_lines):
+                y, x, n = _line_start(H, W, slot.dy, slot.dx, i)
+                prev = None
+                for t in range(n):
+                    yy, xx = y + t * slot.dy, x + t * slot.dx
+                    cover[yy, xx] += 1
+                    c = np.full(width, inf)
+                    c[:D] = vol[yy, xx]
+                    if t == 0:
+                        v = c
+                    else:
+                        pmin = prev.min()
+                        up = np.concatenate([[inf], prev[:-1]])
+                        dn = np.concatenate([prev[1:], [inf]])
+                        best = np.minimum(np.minimum(prev, pmin + p2), np.minimum(up, dn) + p1)
+                        v = (c + best) - pmin
+                        v[D:] = inf
+                    L = v[:D]
+                    if slot.role == sgm_kernel.ADD_S:
+                        L = before["S"][yy, xx] + L
+                    elif slot.role == sgm_kernel.COMPLETE_S:
+                        L = ((before["S"][yy, xx] + before["X1"][yy, xx])
+                             + before["X2"][yy, xx]) + L
+                    key = target[slot.role]
+                    out[key][yy, xx] = L
+                    written[key][yy, xx] += 1
+                    prev = v
+            assert (cover == 1).all(), f"direction {slot[:2]} does not cover each pixel once"
+        assert all((w <= 1).all() for w in written.values()), "an element written twice"
+    return out["S"]
 
 
 @pytest.mark.parametrize("shape", [(1, 6, 3), (6, 1, 2), (1, 1, 4), (9, 5, 33), (5, 9, 1),
@@ -168,6 +196,155 @@ def test_kernel_schedule_model_equals_plain_version(shape, paths):
                                sgm_p1=p1, sgm_p2=p2)
         want = sgm_kernel.aggregate_reference(T(vol), cfg).numpy()
         np.testing.assert_array_equal(_kernel_model(vol, paths, p1, p2), want)
+
+
+@pytest.mark.parametrize("vpl, D", [(0, 36), (4, 36), (4, 8)], ids=["long_d", "d36", "d8"])
+@pytest.mark.parametrize("paths", [4, 8])
+def test_kernel_schedule_model_any_lane_width(vpl, D, paths):
+    """The long-D path's guarded row (a plan with VPL 0) and lanes wider
+    than D needs (+inf padding; most lanes idle at D = 8) give the plain
+    version's bits too."""
+    shape = (7, 10, D)
+    vol = _volume(shape, seed=vpl + paths + D)
+    cfg = asm.StereoConfig(aggregation="sgm", max_disparity=shape[2], sgm_paths=paths)
+    plan = sgm_kernel.plan(*shape, paths, vpl=vpl)
+    assert plan.vpl == vpl
+    want = sgm_kernel.aggregate_reference(T(vol), cfg).numpy()
+    np.testing.assert_array_equal(
+        _kernel_model(vol, paths, cfg.sgm_p1, cfg.sgm_p2, plan), want)
+
+
+def _take_line(phase, g):
+    """sgm_kernel.cu's take_line: warp g's (direction, line), None past the
+    phase's last line."""
+    first = 0
+    for slot in phase.slots:
+        if g < first + slot.n_lines:
+            return (slot.dy, slot.dx), g - first
+        first += slot.n_lines
+    return None
+
+
+PLAN_DS = sorted({c[1][2] for c in chip_smoke.SGM_SMALL_CASES}
+                 | {c.max_disparity for c in asm.PRESETS.values()}
+                 | {sgm_kernel.REG_MAX_D, sgm_kernel.REG_MAX_D + 1, 6143})
+
+
+@pytest.mark.parametrize("paths", [4, 8])
+@pytest.mark.parametrize("D", PLAN_DS)
+def test_plan_hands_out_each_scanline_once_and_fits(D, paths):
+    """Every scanline of every direction lies in exactly one phase's work
+    table, once; the ring (or the long-D path's rows) fits the shared
+    memory the plan asks for; at most two scratch volumes, with their
+    bytes; 3 P - 1 volumes moved, as chip_smoke.sgm_schedule_bytes counts."""
+    cfg = asm.StereoConfig(aggregation="sgm", max_disparity=D, sgm_paths=paths)
+    for H, W in [(375, 1242), (3, 200), (1, 1), (40, 1), (50, 7)]:
+        p = sgm_kernel.plan(H, W, D, paths)
+        assert len(p.phases) == paths // 2
+        seen = []
+        for phase in p.phases:
+            total = sum(s.n_lines for s in phase.slots)
+            warps = sgm_kernel.WARPS
+            seen += [_take_line(phase, g) for g in range(-(-total // warps) * warps)]
+            lengths = [sgm_kernel.longest_line(H, W, s.dy, s.dx) for s in phase.slots]
+            assert lengths == sorted(lengths, reverse=True), "longest scanlines first"
+            assert phase.nvol == max(sgm_kernel.ROLE_VOLUMES[s.role] for s in phase.slots)
+            assert phase.smem_bytes <= sgm_kernel.SMEM_OPTIN
+            if p.vpl:
+                assert p.vpl == sgm_kernel.VPL and D <= sgm_kernel.REG_MAX_D and D % p.vpl == 0
+                assert phase.smem_bytes == (warps * sgm_kernel.DEPTH * phase.nvol * 32 * p.vpl
+                                            * 4)
+            else:
+                assert D > sgm_kernel.REG_MAX_D or D % sgm_kernel.VPL
+                if phase.smem_bytes:
+                    assert 2 * (D + 2) * 4 <= sgm_kernel.ROW_SMEM_BUDGET
+                    assert phase.smem_bytes == warps * 2 * (D + 2) * 4 and not p.row_floats
+                else:
+                    assert 2 * (D + 2) * 4 > sgm_kernel.ROW_SMEM_BUDGET
+                    assert p.row_floats >= total * 2 * (D + 2)
+        lines = [x for x in seen if x is not None]
+        want = [((dy, dx), i) for dy, dx in sgm_kernel.DIRECTIONS[:paths]
+                for i in range(sgm_kernel.lines_of(H, W, dy, dx))]
+        assert sorted(lines) == sorted(want) and len(set(lines)) == len(lines)
+        assert p.scratch_volumes <= 2
+        assert 4 * p.scratch_floats(H, W, D) == 4 * (2 * H * W * D + p.row_floats)
+        assert p.volumes_moved() == 3 * paths - 1
+        assert chip_smoke.sgm_schedule_bytes(H, W, cfg) == 4 * H * W * D * p.volumes_moved()
+        assert len(p.ints()) == 4 + 15 * len(p.phases)
+
+
+def _off_schedule_plans():
+    """Plans of a (5, 6, 8) volume that do not run their path count's
+    schedule: each sums fewer paths, or in another order, or over other
+    scanlines."""
+    p4 = sgm_kernel.plan(5, 6, 8, 4)
+    a, b = p4.phases
+    swapped = tuple(s._replace(role={sgm_kernel.WRITE_X1: sgm_kernel.WRITE_X2,
+                                     sgm_kernel.WRITE_X2: sgm_kernel.WRITE_X1}.get(s.role, s.role))
+                    for s in a.slots)
+    return {
+        "one_phase": (p4._replace(phases=(a,)), 4),
+        "four_paths_for_eight": (p4, 8),
+        "one_slot": (p4._replace(phases=(a._replace(slots=a.slots[:1]), b)), 4),
+        "scratch_roles_swapped": (p4._replace(phases=(a._replace(slots=swapped), b)), 4),
+        "other_shape": (sgm_kernel.plan(6, 5, 8, 4), 4),
+        "one_scratch_volume": (p4._replace(scratch_volumes=1), 4),
+    }
+
+
+@pytest.mark.parametrize("case", list(_off_schedule_plans()))
+def test_aggregate_refuses_a_plan_off_the_schedule(case):
+    """A plan that would sum a partial or reordered S raises, on any
+    device, before anything runs."""
+    plan, paths = _off_schedule_plans()[case]
+    cfg = asm.StereoConfig(aggregation="sgm", max_disparity=8, sgm_paths=paths)
+    with pytest.raises(ValueError, match="schedule"):
+        sgm_kernel.aggregate(T(_volume((5, 6, 8), seed=2)), cfg, plan)
+
+
+@pytest.mark.parametrize("paths", [4, 8])
+def test_aggregate_takes_a_plan_on_the_schedule(paths):
+    """The long-D path and a phase's slots in another hand-out order run
+    the schedule: accepted, with the plain version's bits."""
+    vol = T(_volume((5, 6, 8), seed=3))
+    cfg = asm.StereoConfig(aggregation="sgm", max_disparity=8, sgm_paths=paths)
+    p = sgm_kernel.plan(5, 6, 8, paths)
+    turned = p._replace(phases=tuple(ph._replace(slots=ph.slots[::-1]) for ph in p.phases))
+    want = sgm_kernel.aggregate_reference(vol, cfg)
+    for plan in (sgm_kernel.plan(5, 6, 8, paths, vpl=0), turned):
+        assert torch.equal(sgm_kernel.aggregate(vol, cfg, plan), want)
+
+
+def test_plan_refuses_the_register_path_off_its_d():
+    for D in (5, 33, 130):
+        with pytest.raises(ValueError, match="register path"):
+            sgm_kernel.plan(4, 4, D, 4, vpl=sgm_kernel.VPL)
+        assert sgm_kernel.plan(4, 4, D, 4).vpl == 0
+
+
+def _ordered(bits):
+    """sgm_kernel.cu's order-preserving image of float32 bits (uint32): the
+    sign bit of a non-negative float flipped, every bit of a negative one."""
+    return np.where(bits >> 31, ~bits, bits ^ np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _unordered(u):
+    return np.where(u >> 31, u ^ np.uint32(0x80000000), ~u).astype(np.uint32)
+
+
+def test_redux_min_image_is_exact():
+    """The integer min of the image is the float min, for negatives, zeros
+    and infinities too, and the image inverts exactly."""
+    rng = np.random.default_rng(3)
+    vals = np.concatenate([rng.standard_normal(4000) * 10.0 ** rng.integers(-30, 30, 4000),
+                           [0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45, 3.4e38]]).astype(np.float32)
+    bits = vals.view(np.uint32)
+    np.testing.assert_array_equal(_unordered(_ordered(bits)), bits)
+    for row in rng.permutation(vals)[:3968].reshape(-1, 32):
+        got = _unordered(_ordered(row.view(np.uint32)).min(keepdims=True)).view(np.float32)[0]
+        assert got == row.min()
+    order = np.argsort(_ordered(bits), kind="stable")
+    assert (np.diff(vals[order]) >= 0).all()
 
 
 @pytest.mark.parametrize("paths", [4, 8])
@@ -250,6 +427,17 @@ def test_sgm_aggregate_checks_its_input():
     # aggregate_sgm defers to the wrapper
     torch.testing.assert_close(aggregate.aggregate_sgm(vol, cfg),
                                sgm_kernel.aggregate_reference(vol, cfg), rtol=0, atol=0)
+
+
+def test_sgm_schedule_bytes_counts_volumes():
+    """chip_smoke.sgm_schedule_bytes: 11 and 23 volumes of 238 MB at KITTI,
+    0.78 and 1.64 ms at 3.35 TB/s."""
+    cfg = asm.get_preset("kitti_sgm")
+    vol = 4 * 375 * 1242 * 128
+    for paths, n in ((4, 11), (8, 23)):
+        assert chip_smoke.sgm_schedule_bytes(375, 1242, cfg.replace(sgm_paths=paths)) == n * vol
+    assert 0.78 < 11 * vol / chip_smoke.HBM_BYTES * 1e3 < 0.79
+    assert 1.63 < 23 * vol / chip_smoke.HBM_BYTES * 1e3 < 1.64
 
 
 def test_sgm_bound_counts_bytes():

@@ -2,8 +2,9 @@
 PyTorch version, on the card, bit for bit; and the card-side paths that
 this kernel's slice brought (the kitti_sgm pipeline, eager y_chunks).
 
-chip_smoke.py's small SGM geometries run as tests, plus the pipeline at a
-small size.  They need a CUDA device and nvcc, so they skip on machines
+chip_smoke.py's small SGM geometries run as tests, each under the default
+plan and, where that is the register path, the long-D path, plus the
+pipeline at a small size.  They need a CUDA device and nvcc, so they skip on machines
 without a card; run them there with
 
     python -m pytest --noconftest tests/test_torch_sgm_kernel_cuda.py
@@ -35,8 +36,9 @@ def test_sgm_kernel_matches_plain_version(case):
     from aswstereomatch_torch.ops.cuda import sgm_kernel
 
     before = sgm_kernel.launches
-    chip_smoke.check_sgm(*case, device=torch.device("cuda", 0))
-    assert sgm_kernel.launches == before + 1
+    n = chip_smoke.check_sgm(*case, device=torch.device("cuda", 0))
+    assert n == len(chip_smoke.sgm_check_plans(*case[1], case[2]))
+    assert sgm_kernel.launches == before + n
 
 
 @pytest.mark.parametrize("paths", [4, 8])
