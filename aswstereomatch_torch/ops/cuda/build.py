@@ -41,8 +41,32 @@ class BuildError(RuntimeError):
     pass
 
 
+# What the build compiles and what it includes; both are hashed into the key.
+SOURCE_GLOBS = ("*.cu", "*.cpp")
+HEADER_GLOBS = ("*.cuh",)
+
+
+def _glob(patterns) -> list[Path]:
+    return [p for pattern in patterns for p in sorted(SRC_DIR.glob(pattern))]
+
+
 def _sources() -> list[Path]:
-    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cpp"))
+    return _glob(SOURCE_GLOBS)
+
+
+def keyed_files() -> list[Path]:
+    """The files whose bytes make the build key: the sources and headers."""
+    return _glob(SOURCE_GLOBS + HEADER_GLOBS)
+
+
+def changes_build(path) -> bool:
+    """Whether a change to ``path`` (present or deleted) changes the built
+    library: a file of this directory that ``keyed_files`` would take, or
+    this module, which holds the flags."""
+    path = Path(path).resolve()
+    if path == Path(__file__).resolve():
+        return True
+    return path.parent == SRC_DIR and any(path.match(g) for g in SOURCE_GLOBS + HEADER_GLOBS)
 
 
 def _cuda_home() -> Path:
@@ -57,7 +81,7 @@ def _cuda_home() -> Path:
 
 def _build_key() -> str:
     h = hashlib.sha256()
-    for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
+    for src in keyed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(torch.__version__.encode())

@@ -104,6 +104,36 @@ def resolve_device(name: str) -> torch.device:
     return torch.device("cpu")
 
 
+def child_env() -> dict:
+    """The environment of a child ``python -m aswstereomatch_torch...``: this
+    checkout first on its module path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def log_tail(path, nbytes: int = 4000) -> str:
+    """The last ``nbytes`` of a child's log, for a failure message."""
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() - nbytes))
+            return f.read().decode(errors="replace")
+    except OSError as e:
+        return f"(no log: {e})"
+
+
+def stop(proc, timeout_s: float = 30.0) -> None:
+    """Terminate a child process and wait for it, killing it if it lingers."""
+    if proc.poll() is None:
+        proc.terminate()
+    try:
+        proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
 def card_line() -> Optional[str]:
     """``nvidia-smi --query-gpu=name,power.limit`` for the first card, or
     None where nvidia-smi is not there."""

@@ -153,7 +153,29 @@ per kernel or path; any failure exits non-zero:
                configs route to that never launched, or a launch of any
                other; after all eleven runs (pin_sep_accuracy and
                compare_opencv run twice) the phase fails if any did.
-               Records go to results_torch/.
+               Records go to results_torch/;
+ 11. timing  — the port's serving and timing tools on cuda:0 at full size,
+               one line each with its time and the launches in this
+               process read around it (daemons and CLI or sweep children
+               launch in their own): serve_bench (a daemon child, 4
+               clients, 100 requests x 3 wires at kitti_sep, then 40 x 3
+               at kitti_sgm; each wire's first answers bit for bit with
+               this process's); serve_soak (a recycle soak of 48 requests from
+               2 clients at a measured RSS limit, >= 1 restart on 42, and
+               a steady soak of 1000 requests from 4 clients; 0 unstable
+               answers and 0 errors in both; RSS curves and restart costs
+               printed); soak_runner around a sweep child over
+               SWEEP_SOAK_PAIRS kitti_sep pairs (RSS first / peak / last,
+               pairs/s); profile_stages at kitti, symmetric (K1),
+               left-only and box (K3), separable (K2), the routed kernel
+               launched once per call in every rung; bench_separable at
+               kitti, its accuracy held to bench_results/separable_ab.json;
+               headline_variance (a chain of 20 kitti_sep pairs, 3 CLI
+               sessions: device busy per pair against the sessions'
+               mean_s); the warm hook's body on a change to
+               ops/cuda/asw_kernel.cu, its child's library equal to
+               build.library_path().  Every tool runs; then the phase
+               fails if any missed a check, and prints its total time.
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
@@ -1472,6 +1494,222 @@ def tools_phase(card: str, kernels: dict) -> None:
         fail(f"tools: {', '.join(failed)} failed")
 
 
+# ---- 11. the serving and timing tools ------------------------------------
+SWEEP_SOAK_PAIRS = 200      # the sweep soak's pairs (copies of SWEEP_SOAK_SCENES scenes)
+SWEEP_SOAK_SCENES = 4
+
+
+def sweep_soak(out: Path) -> dict:
+    """``soak_runner`` around ``python -m aswstereomatch_torch.tools.sweep
+    --preset kitti_sep`` over SWEEP_SOAK_PAIRS synthetic 1242x375 pairs in a
+    temporary directory (SWEEP_SOAK_SCENES scenes made once and linked under
+    the other pair ids: a scene takes seconds of numpy to make), deleted
+    afterwards.  Pairs/s over the child's life and between its first and
+    last written map (the steady rate, past the start and the first build)."""
+    import shutil
+    import tempfile
+
+    from aswstereomatch_torch.tools import common, soak_runner, sweep
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_soak_"))
+    try:
+        sweep.make_synthetic_dataset(str(root), SWEEP_SOAK_SCENES, ENTRY_H, ENTRY_W, ENTRY_D)
+        for i in range(SWEEP_SOAK_SCENES, SWEEP_SOAK_PAIRS):
+            for suffix in ("_left.ppm", "_right.ppm", "_gt.pfm"):
+                os.link(root / f"pair{i % SWEEP_SOAK_SCENES:04d}{suffix}",
+                        root / f"pair{i:04d}{suffix}")
+        log = out / "sweep_soak_child.log"
+        rec = soak_runner.run(
+            [sys.executable, "-m", "aswstereomatch_torch.tools.sweep", "--dir", str(root),
+             "--preset", "kitti_sep"], str(out / "sweep_soak.json"), interval=1.0,
+            log=str(log), env=common.child_env(), timeout_s=300)
+        maps = sorted(p.stat().st_mtime for p in root.glob("*_disp.pfm"))
+        lines = [ln for ln in log.read_text().splitlines() if ln.startswith("{")]
+        summary = json.loads(lines[-1]) if lines else {}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec.update(pairs=summary.get("pairs"), mean_bad_2=summary.get("mean_bad_2"),
+               pairs_per_s=(summary.get("pairs") or 0) / rec["wall_s"],
+               steady_pairs_per_s=(len(maps) - 1) / (maps[-1] - maps[0])
+               if len(maps) > 1 and maps[-1] > maps[0] else None)
+    if rec["returncode"] != 0 or rec["pairs"] != SWEEP_SOAK_PAIRS:
+        print("sweep soak: the sweep's log ends:\n" + common.log_tail(log), flush=True)
+    return rec
+
+
+def timing_phase(card: str, dev, kernels: dict) -> None:
+    """Phase 11: the port's serving and timing tools on cuda:0 at full size,
+    one line each with its time and the kernels' launches in this process
+    read around it (the daemons and the CLI and sweep children launch in
+    their own processes; here run the comparisons' and the timed runs'
+    launches).  Every tool runs; then the phase fails if any missed a check."""
+    import torch
+
+    from aswstereomatch_torch.ops.cuda import build
+    from aswstereomatch_torch.tools import (bench_separable, common, headline_variance,
+                                            profile_stages, serve_bench, serve_soak,
+                                            warm_on_compute_change as warm)
+
+    out = HERE / "results_torch"
+    out.mkdir(exist_ok=True)
+    quiet = lambda *a, **k: None  # noqa: E731
+    failed = []
+
+    def tool(name, fn, problem, describe, routed=None):
+        for m in kernels.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        try:
+            rec = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            why, line = problem(rec), describe(rec)
+        except Exception as e:  # noqa: BLE001 - every tool runs; the phase fails after
+            print(f"tools {name} on {card}: FAILED: {type(e).__name__}: {e}", flush=True)
+            failed.append(name)
+            return None
+        got = {k: m.launches for k, m in kernels.items()}
+        routed = set(rec["kernels_routed"] if routed is None else routed)
+        idle = sorted(k for k in routed if not got[k])
+        other = sorted(k for k, n in got.items() if n and k not in routed)
+        if idle:
+            why += f"; routed to {idle} but they never launched here"
+        if other:
+            why += f"; launched {other}, which its configs do not route to"
+        common.write_record(str(out / f"{name}.json"), rec)
+        print(f"tools {name} on {card}: {wall:.1f} s; launches here "
+              f"{ {k: n for k, n in got.items() if n} }; {line}"
+              + (f"; FAILED: {why.lstrip('; ')}" if why else "; ok"), flush=True)
+        if why:
+            failed.append(name)
+        return rec
+
+    def bench_line(r):
+        return "; ".join(
+            f"{k}: p50 {v['p50_ms']:.3f} / p90 {v['p90_ms']:.3f} / p99 {v['p99_ms']:.3f} / max "
+            f"{v['max_ms']:.3f} ms, server p50 {v['server_side_p50_ms']:.3f} ms, past server "
+            f"p50 {v['client_past_server_p50_ms']:.3f} ms, {v['throughput_pairs_per_s']:.3f} "
+            f"pairs/s, first answers {'bit for bit' if v['first_answer_bit_exact'] else 'DIFFER'}"
+            for k, v in r["wire"].items())
+
+    t_phase = time.perf_counter()
+    # kitti_sgm answers ~10 pairs/s under 4 clients: fewer requests keep the phase short
+    for preset, kernel, requests in (("kitti_sep", "K2", 100), ("kitti_sgm", "SGM", 40)):
+        tool(f"serve_bench_{preset}", lambda: serve_bench.run(
+                 dev, preset, 4, requests,
+                 log_path=str(out / f"serve_bench_{preset}_daemon.log"), progress=quiet),
+             lambda r: "" if r["ok"] else f"errors {r['errors']}",
+             lambda r: f"{preset}, 4 clients x {requests} requests x 3 wires at "
+                       f"{ENTRY_W}x{ENTRY_H} D={ENTRY_D}: " + bench_line(r),
+             routed=[kernel])
+
+    def soak_line(r):
+        return (f"{r['requests_completed']} requests, {r['unstable']} unstable, "
+                f"{r['server_errors']} server errors, {r['client_reconnects']} reconnects, "
+                f"{r['supervisor_restarts_on_42']} restarts on 42 (limit "
+                f"{r['max_rss_mb_limit']} MiB), {r['aggregate_pairs_per_s']} pairs/s in "
+                f"{r['wall_s']} s; per class p50/p99 ms "
+                + ", ".join(f"{k} {v['p50_ms']}/{v['p99_ms']}"
+                            for k, v in r["latency_by_class"].items())
+                + "; generations: " + "; ".join(
+                    f"rc {g['rc']}, up {g['up_s']} s, first answer {g['first_answer_s']} s "
+                    f"(elapsed_ms {g['first_answer_elapsed_ms']}), {g['answers']} answers, "
+                    f"RSS MiB {g['rss_curve_mb']}" for g in r["generations"]))
+
+    soaks = tool("serve_soak", lambda: serve_soak.run(
+                     dev, requests=1000, clients=4, recycle_requests=48, recycle_clients=2,
+                     log_dir=str(out / "serve_soak_logs"), deadline_s=600, progress=quiet),
+                 lambda r: "; ".join(f"{k} soak missed {[c for c, ok in r[k]['checks'].items()
+                                                          if not ok]}"
+                                     for k in ("recycle", "steady") if not r[k]["ok"]),
+                 lambda r: f"probe RSS {r['recycle']['probe']['rss_mb_listening']} MiB "
+                           f"listening, {r['recycle']['probe']['rss_mb_after_first_answer']} "
+                           f"MiB after one answer; recycle soak (48 requests, 2 clients): "
+                           + soak_line(r["recycle"]) + " | steady soak (1000 requests, 4 "
+                           "clients, 8192 MiB): " + soak_line(r["steady"]),
+                 routed=["K1", "K2"])
+    if soaks is not None:  # the reference's two records
+        common.write_record(str(out / "serve_soak_2k.json"), soaks["recycle"])
+        common.write_record(str(out / "serve_soak_2k_steady.json"), soaks["steady"])
+    tool("sweep_soak", lambda: sweep_soak(out),
+         lambda r: "" if r["returncode"] == 0 and r["pairs"] == SWEEP_SOAK_PAIRS else
+         f"exit {r['returncode']}, {r['pairs']} pairs, timed out {r['timed_out']}",
+         lambda r: f"sweep kitti_sep over {r['pairs']} pairs at {ENTRY_W}x{ENTRY_H} "
+                   f"D={ENTRY_D} in a child process: RSS first / peak / last "
+                   f"{r['rss_mb_first']} / {r['rss_mb_peak']} / {r['rss_mb_last']} MiB over "
+                   f"{r['samples']} samples; {r['pairs_per_s']:.3f} pairs/s over the child's "
+                   f"{r['wall_s']} s, {r['steady_pairs_per_s']} pairs/s between its first "
+                   f"and last map; mean_bad_2 {r['mean_bad_2']}", routed=[])
+    for mode, kw, kernel in (("symmetric", {}, "K1"), ("left_only", {"left_only": True}, "K3"),
+                             ("box", {"box": True}, "K3"),
+                             ("symmetric+separable", {"separable": True}, "K2")):
+        tool(f"profile_stages_kitti_{mode.replace('+', '_')}",
+             lambda: profile_stages.run(dev, "kitti", queue=8, progress=quiet, **kw),
+             lambda r: "; ".join(r["launch_problems"]),
+             lambda r: f"{r['mode']}: " + ", ".join(
+                 f"{x['rung']} {1e3 * x['s_per_pair']:.3f} ms ({x['delta_ms']:+.3f}; "
+                 f"{x['launches']})" for x in r["rows"])
+                 + f"; epilogue {r['epilogue_share_pct']}%, {r['pairs_per_s_full']} pairs/s",
+             routed=[kernel])
+    tool("separable_ab", lambda: bench_separable.run(dev, ("kitti",), 8, progress=quiet),
+         lambda r: ("" if r["ok"] else "accuracy bars missed")
+         + "".join(f"; {x['variant']}: {x['error']}" for x in r["errors"]),
+         lambda r: "; ".join(
+             f"{x['variant']} {x['pairs_per_s']} pairs/s ({x['pairs_per_s_queued']} queued), "
+             f"peak {x['peak_alloc_mib']} MiB, bad_2 {x['bad_2']}, epe {x['epe']}"
+             if "bad_2" in x else f"{x['variant']}: " + (x.get("error") or
+                                                         f"{x['agree_sixteenth_px']} within "
+                                                         f"1/16 px, max |diff| "
+                                                         f"{x['max_abs_delta']}")
+             for x in r["rows"]) + "; against bench_results/separable_ab.json: "
+         + common.summary(r["checks"]))
+    tool("headline_variance", lambda: headline_variance.run(dev, sessions=3, chain=19,
+                                                           progress=quiet),
+         lambda r: "" if r["device_time"]["device_s_per_pair"] else "no device time",
+         lambda r: f"chain of {r['device_time']['chain']} kitti_sep pairs: device busy "
+                   f"{1e3 * r['device_time']['device_s_per_pair']:.3f} ms/pair "
+                   f"({r['device_time']['device_pairs_per_s']:.3f} pairs/s), wall "
+                   f"{1e3 * r['device_time']['wall_s_per_pair']:.3f} ms/pair (CUDA events, "
+                   f"{r['device_time']['dispatch_times_s']} s per chain); 3 CLI sessions "
+                   f"mean_s {[x['mean_s'] for x in r['sessions']]}, best_s "
+                   f"{[x['best_s'] for x in r['sessions']]}, compile_s "
+                   f"{[x['compile_s'] for x in r['sessions']]}, process "
+                   f"{[x['process_s'] for x in r['sessions']]} s; median mean_s "
+                   f"{r['median_mean_s']}; dispatch overhead "
+                   f"{1e3 * r['dispatch_overhead_s_per_pair']:.3f} ms/pair",
+         routed=["K2"])
+
+    def warm_run():
+        results = out / "warm"
+        results.mkdir(exist_ok=True)
+        child = warm.hook(["aswstereomatch_torch/ops/cuda/asw_kernel.cu", "README.md"], results)
+        if child is None:
+            raise RuntimeError("the hook spawned no child for a change to asw_kernel.cu")
+        try:
+            rc = child.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+            raise
+        lines = (results / "warm_cache.log").read_text().splitlines()
+        lib = next((ln.split(" library ", 1)[1].split(" (")[0] for ln in reversed(lines)
+                    if " library " in ln), None)
+        return {"rc": rc, "library": lib, "want": str(build.library_path()),
+                "log": lines[-1] if lines else "",
+                "hook_log": (results / "warm_hook.log").read_text().splitlines()[-1]}
+
+    tool("warm_hook", warm_run,
+         lambda r: "" if r["rc"] == 0 and r["library"] == r["want"] else
+         f"child exit {r['rc']}, library {r['library']} against {r['want']}: {r['log']}",
+         lambda r: f"{r['hook_log']}; the child's library {r['library']} (build.library_path() "
+                   f"{'equal' if r['library'] == r['want'] else 'DIFFERS'})", routed=[])
+    print(f"tools: {time.perf_counter() - t_phase:.1f} s for phase 11; records in {out}",
+          flush=True)
+    if failed:
+        fail(f"timing tools: {', '.join(failed)} failed")
+
+
 def main() -> int:
     sys.path.insert(0, str(HERE))
     try:
@@ -1983,6 +2221,9 @@ def main() -> int:
 
     # ---- 10. the accuracy and validation tools --------------------------
     tools_phase(card, kernels)
+
+    # ---- 11. the serving and timing tools -------------------------------
+    timing_phase(card, dev, kernels)
 
     def row(name, source, replaces, launches, err, geo, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
