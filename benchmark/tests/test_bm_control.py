@@ -1,0 +1,48 @@
+"""The control against the limits, at the cells' own size, on the card: the
+plain reference in TF32 (and the program's own bfloat16 path where it has
+one) must come out not correct, and the program must come out correct, on
+three seeds.  Run on a card with
+
+    python -m pytest benchmark/tests/test_bm_control.py
+"""
+
+import pytest
+
+from benchmark import harness
+from benchmark.tests import control_readings
+
+SEEDS = [101, 102, 103]
+CASES = [("kitti_sep", "float32"), ("kitti_sep", "uint16_x256"), ("kitti_asw", "float32")]
+
+
+@pytest.fixture(scope="module")
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the control is read at the cells' own size")
+
+
+@pytest.fixture(scope="module")
+def records(card):
+    out = {}
+    for name in sorted({c for c, _ in CASES}):
+        config = harness.load_json(harness.BENCH_DIR / "configs" / f"{name}.json")
+        out[name] = (config, control_readings.readings(config, SEEDS, SEEDS, emit=lambda s: None))
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("config_name,form", CASES)
+def test_control_fails_and_program_passes(records, config_name, form):
+    config, recs = records[config_name]
+    for name, limit in config["limits"][form].items():
+        for seed in SEEDS:
+            worst: dict = {}
+            for r in recs:
+                if r["seed"] == seed:
+                    worst[r["side"]] = max(worst.get(r["side"], 0.0), r[form][name])
+            assert worst["program"] <= limit, (seed, name)
+            assert worst["control_tf32"] > limit, (seed, name)
+            if "program_bf16" in worst:
+                assert worst["program_bf16"] > limit, (seed, name)

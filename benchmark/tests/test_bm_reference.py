@@ -1,0 +1,83 @@
+"""The plain reference against the port's eager path on the CPU, bit for
+bit at small sizes, whatever its block of rows; and its TF32 rounding."""
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark.inputs import synthetic
+from benchmark.reference import plain
+
+CASES = {
+    "exact": dict(asw_separable=False),
+    "exact_left_only": dict(asw_separable=False, asw_symmetric=False),
+    "separable": dict(asw_separable=True),
+    "separable_left_only": dict(asw_separable=True, asw_symmetric=False),
+    "exact_ad_uniqueness": dict(asw_separable=False, cost="ad", uniqueness_ratio=5.0),
+    "exact_no_lr": dict(asw_separable=False, lr_check=False, subpixel=False),
+}
+
+
+def _fields(**kw):
+    from aswstereomatch_torch.config import StereoConfig
+    import dataclasses
+
+    return dataclasses.asdict(StereoConfig(max_disparity=12, window_radius=4, **kw))
+
+
+def _pair(h=30, w=52, d=12, seed=3):
+    p = synthetic.make_pair(height=h, width=w, max_disparity=d, seed=seed)
+    return p["left"].astype(np.uint8), p["right"].astype(np.uint8)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reference_equals_the_eager_path(case):
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.models.pipeline import StereoMatcher
+
+    fields = _fields(**CASES[case])
+    left, right = _pair()
+    want = StereoMatcher(StereoConfig(**fields), device="cpu")(left, right).numpy()
+    agg = "asw_separable" if fields["asw_separable"] else "asw_exact"
+    for rows in (7, 48):
+        got = plain.disparity(left, right, fields, agg, block_rows=rows)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("agg", ["asw_exact", "asw_separable"])
+def test_reference_matches_the_ground_truth(agg):
+    """The reference is a sound matcher: bad-2.0 under 5% of the
+    non-occluded pixels of a synthetic pair (the engine's own health bar)."""
+    from benchmark.inputs import evaluate
+
+    fields = _fields(asw_separable=agg == "asw_separable")
+    p = synthetic.make_pair(height=48, width=80, max_disparity=12, seed=11)
+    disp = plain.disparity(p["left"].astype(np.uint8), p["right"].astype(np.uint8), fields, agg)
+    assert evaluate.bad_delta(disp, p["gt"], 2.0, ~p["occluded"]) < 0.05
+
+
+def test_reference_refuses_what_it_does_not_compute():
+    with pytest.raises(ValueError):
+        plain.config(_fields(median_mode="weighted"))
+
+
+def test_tf32_rounds_to_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 2**-12, 3.0 + 2**-10, -(1.0 + 2**-11)])
+    y = plain.tf32(x)
+    assert y.tolist() == [1.0, 1.0 + 2**-10, 1.0, 3.0 + 2**-9, -(1.0 + 2**-10)]
+    bits = y.view(torch.int32) & 0x1FFF
+    assert bool((bits == 0).all())
+
+
+@pytest.mark.parametrize("agg", ["asw_exact", "asw_separable"])
+def test_tf32_control_departs_from_the_reference(agg):
+    """The control's number reads above the program's own, which is 0 here:
+    on the CPU the port's eager path is the reference bit for bit."""
+    from benchmark import correctness
+
+    fields = _fields(asw_separable=agg == "asw_separable")
+    left, right = _pair(h=40, w=64, d=12, seed=5)
+    ref = plain.disparity(left, right, fields, agg)
+    ctl = plain.disparity(left, right, fields, agg, precision="tf32")
+    assert correctness.readings(ctl, ref, "float32")["share_off_0"] > 0
+    assert correctness.readings(ref, ref, "float32")["share_off_0"] == 0
