@@ -39,8 +39,13 @@ import torch
 from ..config import StereoConfig, get_preset
 from ..ops import aggregate, postprocess, preprocess, wta
 from ..ops.cuda import asw_dlanes_kernel, asw_kernel, asw_sep_kernel, asw_sym_dlanes_kernel
+from ..utils.profiling import span
 
-aggregated_volume = aggregate.aggregated_volume
+
+def aggregated_volume(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+    """``aggregate.aggregated_volume``, the eager path's aggregation stage."""
+    with span("pipeline.aggregate"):
+        return aggregate.aggregated_volume(left, right, cfg)
 
 
 def disp_pre_from_volume(vol: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
@@ -78,10 +83,11 @@ def _postprocess_from_volume(
     vol: torch.Tensor, cfg: StereoConfig, left: torch.Tensor
 ) -> torch.Tensor:
     """WTA + subpixel + LR + fill + median from an aggregated volume."""
-    disp = disp_pre_from_volume(vol, cfg)
-    if cfg.median_filter:
-        disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
-    return disp
+    with span("pipeline.postprocess"):
+        disp = disp_pre_from_volume(vol, cfg)
+        if cfg.median_filter:
+            disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
+        return disp
 
 
 def kernel_for(cfg: StereoConfig):
@@ -159,7 +165,8 @@ def _kernel_wta(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> d
                 "(kernel_layout 'auto'/'dlanes'); use backend='auto'/'eager'"
             )
         raise ValueError("no kernel serves this config; use backend='auto'/'eager'")
-    return kernel.wta_outputs(left, right, cfg)
+    with span("pipeline.aggregate"):
+        return kernel.wta_outputs(left, right, cfg)
 
 
 def _disp_pre_from_wta(outs: dict, cfg: StereoConfig) -> torch.Tensor:
@@ -185,10 +192,11 @@ def _postprocess_from_wta(
     outs: dict, cfg: StereoConfig, left: torch.Tensor
 ) -> torch.Tensor:
     """Post-process the fused kernel's online-WTA outputs (no volume)."""
-    disp = _disp_pre_from_wta(outs, cfg)
-    if cfg.median_filter:
-        disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
-    return disp.to(torch.float32)
+    with span("pipeline.postprocess"):
+        disp = _disp_pre_from_wta(outs, cfg)
+        if cfg.median_filter:
+            disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
+        return disp.to(torch.float32)
 
 
 def tile_disparity(
@@ -210,15 +218,17 @@ def tile_disparity(
     and bottom reproduce the unbanded edge clamp: banded == unbanded bit
     for bit hinges on it."""
     if _resolve_backend(cfg, left_ext.device) == "cuda":
-        disp = _disp_pre_from_wta(_kernel_wta(left_ext, right_ext, cfg), cfg)
+        found, disp_pre = _kernel_wta(left_ext, right_ext, cfg), _disp_pre_from_wta
     else:
-        disp = disp_pre_from_volume(aggregated_volume(left_ext, right_ext, cfg), cfg)
-    if not cfg.median_filter:
-        return disp[halo : halo + rows]
-    g = torch.arange(start - 1, start + rows + 1, device=disp.device).clamp(0, true_h - 1)
-    local = (g - (start - halo)).clamp(0, disp.shape[0] - 1)  # global rows +-1
-    guide = _guide_lab(left_ext.index_select(0, local), cfg)
-    return postprocess.median_filter(disp.index_select(0, local), cfg, guide)[1 : 1 + rows]
+        found, disp_pre = aggregated_volume(left_ext, right_ext, cfg), disp_pre_from_volume
+    with span("pipeline.postprocess"):
+        disp = disp_pre(found, cfg)
+        if not cfg.median_filter:
+            return disp[halo : halo + rows]
+        g = torch.arange(start - 1, start + rows + 1, device=disp.device).clamp(0, true_h - 1)
+        local = (g - (start - halo)).clamp(0, disp.shape[0] - 1)  # global rows +-1
+        guide = _guide_lab(left_ext.index_select(0, local), cfg)
+        return postprocess.median_filter(disp.index_select(0, local), cfg, guide)[1 : 1 + rows]
 
 
 def match_pair_chunked(left: torch.Tensor, right: torch.Tensor,
@@ -367,9 +377,15 @@ class StereoMatcher:
             )
 
     def __call__(self, left, right) -> torch.Tensor:
-        self._validate(left, right, batched=False)
-        return match_pair(self._as_input(left), self._as_input(right), self.cfg)
+        with span("pipeline.call"):
+            with span("pipeline.input"):
+                self._validate(left, right, batched=False)
+                left, right = self._as_input(left), self._as_input(right)
+            return match_pair(left, right, self.cfg)
 
     def batch(self, lefts, rights) -> torch.Tensor:
-        self._validate(lefts, rights, batched=True)
-        return match_batch(self._as_input(lefts), self._as_input(rights), self.cfg)
+        with span("pipeline.call"):
+            with span("pipeline.input"):
+                self._validate(lefts, rights, batched=True)
+                lefts, rights = self._as_input(lefts), self._as_input(rights)
+            return match_batch(lefts, rights, self.cfg)

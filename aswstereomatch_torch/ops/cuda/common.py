@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ...config import StereoConfig
+from ...utils.profiling import span
 from .. import postprocess, preprocess, wta
 
 # The kernels' outputs, in the order the bound ops return them.
@@ -25,9 +26,10 @@ def stacks(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig):
     """Edge-extended channel stacks: (7, H, W + 2r) and (7, H, W + 2r + D - 1)."""
     r = cfg.window_radius
     D = cfg.max_disparity
-    ls_ext = preprocess.pad_edge(preprocess.channel_stack(left), 2, r, r)
-    rs_ext = preprocess.pad_edge(preprocess.channel_stack(right), 2, r + D - 1, r)
-    return ls_ext, rs_ext
+    with span("pipeline.preprocess"):
+        ls_ext = preprocess.pad_edge(preprocess.channel_stack(left), 2, r, r)
+        rs_ext = preprocess.pad_edge(preprocess.channel_stack(right), 2, r + D - 1, r)
+        return ls_ext, rs_ext
 
 
 def wta_planes(vol: torch.Tensor) -> dict:
