@@ -2,11 +2,14 @@
 // torch.ops.asw_torch.asw_wta (fused exact ASW, asw_kernel.cu),
 // asw_sep_wta (separable ASW, asw_sep_kernel.cu), asw_dlanes_wta (left-only
 // ASW or box, asw_dlanes_kernel.cu), asw_sym_dlanes_wta (symmetric ASW,
-// asw_sym_dlanes_kernel.cu) and sgm_aggregate (semi-global aggregation,
-// sgm_kernel.cu).  Each checks its inputs, allocates the outputs and
+// asw_sym_dlanes_kernel.cu), sgm_aggregate (semi-global aggregation,
+// sgm_kernel.cu) and channel_stacks (both views' channel stacks,
+// stacks_kernel.cu).  Each checks its inputs, allocates the outputs and
 // launches on the current CUDA stream (sgm_aggregate writes into the
 // scratch its wrapper allocated); a launch error raises.  They have only a CUDA implementation: CPU tensors take the plain
 // PyTorch versions in the ops/cuda/*.py wrappers before they get here.
+// channel_stacks_table writes stacks_kernel.cu's constant table (a CPU
+// tensor) on one device, once per process: its wrapper calls it.
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -52,6 +55,10 @@ extern "C" int sgm_aggregate_launch(const float* C, float* S, float* scratch,
                                     long long scratch_floats, int H, int W, int D, float p1,
                                     float p2, const long long* plan, int plan_len,
                                     void* stream);
+extern "C" int channel_stacks_set_table(const float* table, int n);
+extern "C" int channel_stacks_launch(const float* left, const float* right, int H, int W,
+                                     int C, int r, int D, float* ls, float* rs,
+                                     void* stream);
 extern "C" const char* asw_error_string(int err);
 
 namespace {
@@ -253,6 +260,42 @@ at::Tensor sgm_aggregate(const at::Tensor& vol, const at::Tensor& scratch, doubl
   return out;
 }
 
+void channel_stacks_table(const at::Tensor& table, int64_t device) {
+  TORCH_CHECK(table.device().is_cpu() && table.scalar_type() == at::kFloat &&
+                  table.is_contiguous() && table.dim() == 1,
+              "the stack table must be a contiguous 1-D float32 CPU tensor");
+  c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  const int err = channel_stacks_set_table(table.data_ptr<float>(), (int)table.numel());
+  TORCH_CHECK(err == 0, "channel_stacks_table failed (", table.numel(), " floats): ",
+              asw_error_string(err));
+}
+
+// left / right (H, W, 3) or (H, W) -> ls (7, H, W + 2r), rs (7, H, W + 2r + D - 1).
+std::tuple<at::Tensor, at::Tensor> channel_stacks(const at::Tensor& left,
+                                                  const at::Tensor& right, int64_t r,
+                                                  int64_t D) {
+  check_input(left, "left", left.dim());
+  check_input(right, "right", left.dim());
+  TORCH_CHECK(left.dim() == 2 || (left.dim() == 3 && left.size(2) == 3),
+              "images must be (H, W, 3) or (H, W)");
+  TORCH_CHECK(right.sizes() == left.sizes(), "left and right must have one shape");
+  TORCH_CHECK(right.device() == left.device(), "left and right must share one device");
+  TORCH_CHECK(r >= 0 && D >= 1, "need r >= 0 and D >= 1");
+  const int64_t H = left.size(0), W = left.size(1);
+  const int64_t C = left.dim() == 3 ? 3 : 1;
+  TORCH_CHECK(H >= 1 && W >= 1, "empty image");
+  TORCH_CHECK(H < (int64_t)1 << 30 && W + 2 * r + D - 1 < (int64_t)1 << 30, "image too large");
+  c10::cuda::CUDAGuard guard(left.device());
+  at::Tensor ls = at::empty({7, H, W + 2 * r}, left.options());
+  at::Tensor rs = at::empty({7, H, W + 2 * r + D - 1}, left.options());
+  const int err = channel_stacks_launch(left.data_ptr<float>(), right.data_ptr<float>(),
+                                        (int)H, (int)W, (int)C, (int)r, (int)D,
+                                        ls.data_ptr<float>(), rs.data_ptr<float>(),
+                                        stream_of(left));
+  TORCH_CHECK(err == 0, "channel_stacks launch failed: ", asw_error_string(err));
+  return {ls, rs};
+}
+
 }  // namespace
 
 TORCH_LIBRARY(asw_torch, m) {
@@ -279,6 +322,8 @@ TORCH_LIBRARY(asw_torch, m) {
   m.def(
       "sgm_aggregate(Tensor vol, Tensor(a!) scratch, float p1, float p2, int[] plan) "
       "-> Tensor");
+  m.def("channel_stacks(Tensor left, Tensor right, int r, int D) -> (Tensor, Tensor)");
+  m.def("channel_stacks_table(Tensor table, int device) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
@@ -287,4 +332,9 @@ TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
   m.impl("asw_dlanes_wta", &asw_dlanes_wta);
   m.impl("asw_sym_dlanes_wta", &asw_sym_dlanes_wta);
   m.impl("sgm_aggregate", &sgm_aggregate);
+  m.impl("channel_stacks", &channel_stacks);
+}
+
+TORCH_LIBRARY_IMPL(asw_torch, CPU, m) {
+  m.impl("channel_stacks_table", &channel_stacks_table);
 }

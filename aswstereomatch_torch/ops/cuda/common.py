@@ -16,20 +16,23 @@ import torch
 
 from ...config import StereoConfig
 from ...utils.profiling import span
-from .. import postprocess, preprocess, wta
+from .. import postprocess, wta
+from . import stacks_kernel
 
 # The kernels' outputs, in the order the bound ops return them.
 PLANES = ("bestd", "bestc", "cm", "cp", "ubest", "rbestd")
 
 
 def stacks(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig):
-    """Edge-extended channel stacks: (7, H, W + 2r) and (7, H, W + 2r + D - 1)."""
+    """Edge-extended channel stacks: (7, H, W + 2r) and (7, H, W + 2r + D - 1).
+    The plain version for CPU tensors; otherwise the stack kernel, one launch
+    for both views, which raises on an input it cannot take."""
     r = cfg.window_radius
     D = cfg.max_disparity
     with span("pipeline.preprocess"):
-        ls_ext = preprocess.pad_edge(preprocess.channel_stack(left), 2, r, r)
-        rs_ext = preprocess.pad_edge(preprocess.channel_stack(right), 2, r + D - 1, r)
-        return ls_ext, rs_ext
+        if left.device.type == "cpu":
+            return stacks_kernel.reference(left, right, r, D)
+        return stacks_kernel.channel_stacks(left, right, r, D)
 
 
 def wta_planes(vol: torch.Tensor) -> dict:

@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Five kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
+Six kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
 the separable-ASW kernel (ops/cuda/asw_sep_kernel.cu); K3, the d-lanes
 kernel for left-only ASW and box (ops/cuda/asw_dlanes_kernel.cu); K4, the
 symmetric d-lanes kernel (ops/cuda/asw_sym_dlanes_kernel.cu); SGM, the
-semi-global scan kernel (ops/cuda/sgm_kernel.cu).  Phases, one line each
-per kernel or path; any failure exits non-zero:
+semi-global scan kernel (ops/cuda/sgm_kernel.cu); and the stack kernel
+(ops/cuda/stacks_kernel.cu), which builds both views' channel stacks for
+K1-K4 in one launch a pair.  Phases, one line each per kernel or path; any
+failure exits non-zero:
 
   1. device  — refuses to run without CUDA; prints the card's name and
                power limit (nvidia-smi) and the torch / CUDA versions;
@@ -57,7 +59,8 @@ per kernel or path; any failure exits non-zero:
                pair (K4), whose map must agree with K1's.  Launch counts are
                reset just before each path and read just after it: every
                kernel of the path must have launched (K1 6, K2 6, K3 5 + 1,
-               K4 1 times) and no other.  A "dlanes" config no d-lanes
+               K4 1 times) and no other, and the stack kernel once per
+               launch of K1-K4 (here and in phase 7).  A "dlanes" config no d-lanes
                kernel supports (D = 256) must raise.  kitti_sgm three
                requests and a batch of two, and one 8-path pair (SGM 6),
                bad-2.0 < 5%, each map equal bit for bit to the same
@@ -87,7 +90,11 @@ per kernel or path; any failure exits non-zero:
                alone, its rate over the 3 P - 1 volumes it moves
                (sgm_schedule_bytes) and its share of their floor, the
                kernel call's peak allocation, that volume's build, and
-               kitti_sgm end to end with its peak allocation;
+               kitti_sgm end to end with its peak allocation; the stack
+               kernel against the plain stack build (both views, bit for
+               bit, then timed: the kernel's device time by the profiler,
+               both by CUDA events around a call) at 1242x375 D=128 and
+               450x375 D=64 r=16, beside its byte bound (stacks_bound);
   7. entry   — the user's entry points at 1242x375 D=128, launch counts
                read around each: whether the native codec built (the
                compiler's words if not); ``python -m
@@ -179,7 +186,7 @@ per kernel or path; any failure exits non-zero:
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
-k1_bound / k2_bound / box_bound / sgm_bound); the last line is
+k1_bound / k2_bound / box_bound / sgm_bound / stacks_bound); the last line is
 {"ok": true, "device": {...}}.  Imports torch, numpy and the port only (no
 jax).
 """
@@ -454,6 +461,15 @@ def sgm_bound(H: int, W: int, cfg) -> tuple:
     assert cfg.aggregation == "sgm", "the bound counts SGM work"
     n = H * W * cfg.max_disparity
     return _bound(8.0 * n * cfg.sgm_paths, 0.0, 2 * 4 * n)
+
+
+def stacks_bound(H: int, W: int, r: int, D: int) -> tuple:
+    """Both views' channel stacks at their least traffic: the two float32
+    (H, W, 3) images read once and the stacks (7, H, W + 2r) and (7, H,
+    W + 2r + D - 1) written once.  The ~200 FP32 operations a pixel (15 of
+    them IEEE divisions) take less time than the bytes at these rates."""
+    nbytes = 4 * (2 * 3 * H * W + 7 * H * (2 * (W + 2 * r) + D - 1))
+    return _bound(0.0, 0.0, nbytes)
 
 
 def sgm_schedule_bytes(H: int, W: int, cfg) -> int:
@@ -783,6 +799,28 @@ def _median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def _device_ms(fn, name: str, reps: int) -> float:
+    """Median device time (ms) of the launches of the kernel ``name`` over
+    ``reps`` calls of ``fn`` (after one warm-up call), from the profiler's
+    CUDA activity: a kernel shorter than its host call, which CUDA events
+    around the call would time with the host's enqueue."""
+    import torch
+
+    from aswstereomatch_torch.utils import profiling
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [(b - a) / 1e3 for a, b, n in profiling._device_intervals(prof) if name in n]
+    if len(times) != reps:
+        fail(f"device time of {name}: the profiler saw {len(times)} launches of {reps}")
+    return float(np.median(times))
+
+
 # ---- 7. the entry points: serve, CLI, sweep (each path read on its own) ----
 ENTRY_H, ENTRY_W, ENTRY_D = 375, 1242, 128
 
@@ -1098,7 +1136,7 @@ def sharded_phase(card: str, dev, reset, launched) -> dict:
         if ucfg not in unsharded:
             reset()
             unsharded[ucfg] = pipeline.match_pair(l, r, ucfg)
-            launched(f"sharded: unsharded {label}", {ukey: 1})
+            launched(f"sharded: unsharded {label}", {ukey: 1}, stack_builds=False)
         want = unsharded[ucfg]
         calls = []
         kernel_call = asw_kernel.wta_outputs_from_stacks
@@ -1112,7 +1150,7 @@ def sharded_phase(card: str, dev, reset, launched) -> dict:
         try:
             reset()
             got = fns[axis](l, r, cfg, m4)
-            n = launched(f"sharded: {label} {axis}", {key: 4})
+            n = launched(f"sharded: {label} {axis}", {key: 4}, stack_builds=False)
         finally:
             asw_kernel.wta_outputs_from_stacks = kernel_call
         if not torch.equal(got, want):
@@ -1144,7 +1182,7 @@ def sharded_phase(card: str, dev, reset, launched) -> dict:
     singles = [pipeline.match_pair(lefts[i], rights[i], batch_cfg) for i in range(2)]
     reset()
     out = tiling.match_batch_sharded(lefts, rights, batch_cfg, m22)
-    n = launched("sharded: kitti_batch 2x2", {"K1": 4})
+    n = launched("sharded: kitti_batch 2x2", {"K1": 4}, stack_builds=False)
     for i in range(2):
         if not torch.equal(out[i], singles[i]):
             fail(f"sharded: kitti_batch pair {i} on the 2x2 mesh differs from its single "
@@ -1168,7 +1206,7 @@ def sharded_phase(card: str, dev, reset, launched) -> dict:
                                   [dev] * 4)
         reset()
         got = fn(torch.from_numpy(lc), torch.from_numpy(rc))
-        launched(f"sharded: kitti_tiled {axis} from CPU inputs", {"K1": 4})
+        launched(f"sharded: kitti_tiled {axis} from CPU inputs", {"K1": 4}, stack_builds=False)
         if got.device.type != "cpu" or not torch.equal(got, want):
             fail(f"sharded: kitti_tiled {axis} from CPU inputs on {got.device} differs from "
                  f"the unsharded run on {int((got.cpu() != want).sum())} pixels")
@@ -1176,7 +1214,7 @@ def sharded_phase(card: str, dev, reset, launched) -> dict:
     reset()
     shards = distributed.run_batch_distributed(np.stack([lc, p2["left"]]),
                                                np.stack([rc, p2["right"]]), batch_cfg, gm)
-    launched("sharded: run_batch_distributed from CPU inputs", {"K1": 4})
+    launched("sharded: run_batch_distributed from CPU inputs", {"K1": 4}, stack_builds=False)
     out = torch.full((2, *want.shape), float("nan"))
     for s in shards:
         out[s.index] = s.data.cpu()
@@ -1727,7 +1765,7 @@ def main() -> int:
     from aswstereomatch_torch.ops import cost as cost_ops
     from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
                                                asw_sym_dlanes_kernel, build, common,
-                                               sgm_kernel)
+                                               sgm_kernel, stacks_kernel)
     from aswstereomatch_torch.utils import evaluate, plan_sweep, synthetic
 
     # ---- 1. device ------------------------------------------------------
@@ -1906,17 +1944,23 @@ def main() -> int:
 
     def reset():
         torch.cuda.synchronize()
-        for m in kernels.values():
+        for m in (*kernels.values(), stacks_kernel):
             m.launches = 0
 
-    def launched(label, want) -> int:
+    def launched(label, want, stack_builds=True) -> int:
         """Fails unless the launches since the last reset are ``want`` (name
-        -> count) and none of any other kernel; returns their sum."""
+        -> count) and none of any other kernel, and, with ``stack_builds``,
+        the stack kernel's one per launch of K1-K4 (every kernel-route call
+        built its stacks in it); returns their sum."""
         torch.cuda.synchronize()
         got = {k: m.launches for k, m in kernels.items()}
         full = {k: want.get(k, 0) for k in kernels}
         if got != full:
             fail(f"serve: {label} launched {got}, expected {full}")
+        builds = sum(want.get(k, 0) for k in ("K1", "K2", "K3", "K4"))
+        if stack_builds and stacks_kernel.launches != builds:
+            fail(f"serve: {label} launched the stack kernel {stacks_kernel.launches} times, "
+                 f"expected {builds} (one per launch of K1-K4)")
         return sum(want.values())
 
     Matcher = aswstereomatch_torch.StereoMatcher
@@ -1944,17 +1988,20 @@ def main() -> int:
     disps = serve(matcher, reqs, 2)
     dk = serve(kitti, [pk], 0)[0]
     main_launches = launched("K1's path", {"K1": 6})
+    stack_launches = stacks_kernel.launches
     bads = [check_map("450x375", d, p, D_m, 0.05) for p, d in zip(reqs, disps)]
     bad_k = check_map("kitti_tiled", dk, pk, 128)
     print(f"serve K1: 3 requests 450x375 bad_2 {[round(b, 5) for b in bads]}, batch of 2 "
           f"== singles, kitti_tiled 1242x375 D=128 bad_2 {bad_k:.5f} density 1.0; "
-          f"K1 launches {main_launches}, other kernels 0", flush=True)
+          f"K1 launches {main_launches}, stack kernel {stack_launches}, other kernels 0",
+          flush=True)
 
     # K2's path: kitti_sep requests and a batch of two, one kitti_seplo pair
     reset()
     ds = serve(sep, reqs_k, 2)
     dlo = serve(seplo, [pk], 0)[0]
     sep_launches = launched("K2's path", {"K2": 6})
+    stack_launches += stacks_kernel.launches
     bads_s = [check_map("kitti_sep", d, p, 128, 0.05) for p, d in zip(reqs_k, ds)]
     bad_lo = check_map("kitti_seplo", dlo, pk, 128, 0.05)
     delta = evaluate.bad_delta_between(ds[0], dk, 2.0, ~pk["occluded"])
@@ -1964,7 +2011,7 @@ def main() -> int:
           f"batch of 2 == singles, kitti_seplo bad_2 {bad_lo:.5f}, density 1.0; "
           f"kitti_sep vs exact kitti_tiled bad-2.0 delta {delta:.5f} "
           f"(<= {SEP_CONTRACT['delta_bad2_max']}); K2 launches {sep_launches}, "
-          f"other kernels 0", flush=True)
+          f"stack kernel {stacks_kernel.launches}, other kernels 0", flush=True)
 
     # K3's paths: left-only ASW requests and a batch of two; box, one pair
     reset()
@@ -2166,6 +2213,35 @@ def main() -> int:
               + (f"; peak allocation of a call {t['peak_alloc_mib']:.3f} MiB"
                  if "peak_alloc_mib" in t else ""), flush=True)
 
+    # The stack kernel against the plain stack build: both views, bit for
+    # bit, then timed (the kernel's device time from the profiler, both by
+    # CUDA events around a call) beside the byte bound
+    for geo, p, cfg in (("stacks 1242x375 D=128", pk, kitti_cfg),
+                        ("stacks 450x375 D=64", reqs[0], cfg_m)):
+        l = torch.from_numpy(p["left"]).to(dev)
+        r = torch.from_numpy(p["right"]).to(dev)
+        H, W = p["gt"].shape
+        rad, D = cfg.window_radius, cfg.max_disparity
+        got = stacks_kernel.channel_stacks(l, r, rad, D)
+        want = stacks_kernel.reference(l, r, rad, D)
+        for view, a, b in zip(("left", "right"), got, want):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                fail(f"stacks {geo}: the {view} stack differs from the plain build on "
+                     f"{int((a.view(torch.int32) != b.view(torch.int32)).sum())} elements")
+        bound_ms, bound_by = stacks_bound(H, W, rad, D)
+        t = times[geo] = {  # ms: the kernel's device time; call_ms: CUDA events around a call
+            "ms": _device_ms(lambda: stacks_kernel.channel_stacks(l, r, rad, D),
+                             "channel_stacks_kernel", 50),
+            "call_ms": _median_ms(lambda: stacks_kernel.channel_stacks(l, r, rad, D), 50),
+            "plain_ms": _median_ms(lambda: stacks_kernel.reference(l, r, rad, D), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print(f"times {geo} r={rad} on {card}: stack kernel {t['ms']:.4f} ms on the card "
+              f"({t['call_ms']:.4f} ms by CUDA events around a call), both views bit for bit "
+              f"with the plain build (bound {bound_ms:.4f} ms by {bound_by}, "
+              f"{100 * bound_ms / t['ms']:.1f}%); plain stack build {t['plain_ms']:.3f} ms",
+              flush=True)
+
     # SGM: the kernel over the raw cost volume, 4 and 8 paths; the raw cost
     # volume (the Python loop over d, ops/cost.py) and kitti_sgm end to end
     for paths in (4, 8):
@@ -2247,6 +2323,9 @@ def main() -> int:
         row("sgm_aggregate", "aswstereomatch_torch/ops/cuda/sgm_kernel.cu",
             "aswstereomatch_tpu/ops/aggregate.py:335", sgm_launches, sgm_err,
             "SGM kitti_sgm 4 paths", eight_paths=times["SGM kitti_sgm 8 paths"]),
+        row("channel_stacks", "aswstereomatch_torch/ops/cuda/stacks_kernel.cu",
+            "none: XLA fuses aswstereomatch_tpu/ops/preprocess.py::channel_stack", stack_launches,
+            0.0, "stacks 1242x375 D=128", middlebury=times["stacks 450x375 D=64"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -18,6 +18,7 @@ import torch
 
 import aswstereomatch_torch as ast
 from aswstereomatch_torch.models import pipeline
+from aswstereomatch_torch.ops.cuda import common, stacks_kernel
 from aswstereomatch_torch.utils import profiling, synthetic
 
 ROOT = profiling.ROOT_SPAN
@@ -111,10 +112,25 @@ def test_each_call_is_one_root_with_its_stages(monkeypatch, pair, route):
         assert all(a.end_ns <= b.start_ns for a, b in zip(top, top[1:]))
 
 
-def test_preprocess_nests_in_aggregate_outside_a_request(pair):
+def _open_span_when_called(monkeypatch, module, name):
+    """Replace ``module.name`` by a pass-through that records the innermost
+    span open on the thread at each call."""
+    seen, real = [], getattr(module, name)
+
+    def recording(*args, **kw):
+        stack = getattr(profiling._OPEN, "stack", None)
+        seen.append(stack[-1][0] if stack else None)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(module, name, recording)
+    return seen
+
+
+def test_preprocess_nests_in_aggregate_outside_a_request(monkeypatch, pair):
     """``_kernel_wta`` alone: the kernel module's plain version goes through
     ``stacks()``; with no ``pipeline.call`` around them the spans carry no
-    request."""
+    request.  The CPU stack build runs inside ``pipeline.preprocess``."""
+    seen = _open_span_when_called(monkeypatch, stacks_kernel, "reference")
     m = _matcher()
     left = torch.from_numpy(pair["left"]).to(torch.float32)
     right = torch.from_numpy(pair["right"]).to(torch.float32)
@@ -125,6 +141,29 @@ def test_preprocess_nests_in_aggregate_outside_a_request(pair):
     assert got["pipeline.aggregate"].parent is None
     assert got["pipeline.preprocess"].parent == "pipeline.aggregate"
     assert all(r.request is None for r in got.values())
+    assert seen == ["pipeline.preprocess"]
+
+
+def test_preprocess_wraps_the_stack_kernel_launch(monkeypatch):
+    """Off the CPU ``stacks()`` hands both views to the stack kernel's
+    wrapper, once, inside the ``pipeline.preprocess`` span (meta tensors and
+    a stand-in launch: no card here)."""
+    def launch(left, right, r, D):
+        h, w = left.shape[:2]
+        return (torch.empty((7, h, w + 2 * r), device=left.device),
+                torch.empty((7, h, w + 2 * r + D - 1), device=left.device))
+
+    monkeypatch.setattr(stacks_kernel, "channel_stacks", launch)
+    seen = _open_span_when_called(monkeypatch, stacks_kernel, "channel_stacks")
+    monkeypatch.setattr(stacks_kernel, "reference", None)  # the CPU path must not run
+    cfg = _matcher().cfg
+    left = torch.empty((6, 9, 3), device="meta")
+    with _profiler():
+        ls, rs = common.stacks(left, left, cfg)
+    r, D = cfg.window_radius, cfg.max_disparity
+    assert ls.shape == (7, 6, 9 + 2 * r) and rs.shape == (7, 6, 9 + 2 * r + D - 1)
+    assert seen == ["pipeline.preprocess"]
+    assert [rec.name for rec in profiling.spans()] == ["pipeline.preprocess"]
 
 
 def test_batch_and_bands_are_one_request_each(pair):
