@@ -17,13 +17,17 @@ the program cannot move the yardstick:
     median);
   - ``spatial_weights`` / ``axial_weights``: ``utils/convert.py``.
 
-It imports neither ``jax`` nor either engine package.  The window
-aggregations are in ``asw_exact.py`` and ``asw_separable.py``; a
-configuration's file names its module under ``"reference"``.
+It imports neither ``jax`` nor either engine package.  The aggregations
+are in ``asw_exact.py``, ``asw_separable.py`` and ``sgm.py``; a
+configuration's file names its module under ``"reference"``.  A module
+aggregates a block of rows with its halo; one that sets ``WHOLE_IMAGE =
+True`` (SGM, whose vertical paths run across every row) is handed the
+whole image as one block.
 
 ``precision="tf32"`` is the benchmark's control: the operands of every
-weighted window sum rounded to TF32 (10 mantissa bits, as the tensor cores
-take them) with float32 accumulation.  It must come out as not correct.
+weighted window sum, or of every step of an SGM path, rounded to TF32 (10
+mantissa bits, as the tensor cores take them) with float32 accumulation.
+It must come out as not correct.
 """
 
 from __future__ import annotations
@@ -258,9 +262,10 @@ def _block_rows(stack: torch.Tensor, y0: int, y1: int, halo: int) -> torch.Tenso
 def disparity(left, right, fields: dict, aggregation: str, device="cpu",
               precision: str = "float32", block_rows: int = 48) -> np.ndarray:
     """The float32 (H, W) disparity map of one pair of (H, W, 3) uint8
-    images under the configuration ``fields``, with the window aggregation
-    of ``benchmark/reference/<aggregation>.py``.  ``block_rows`` rows are
-    aggregated at a time; the result does not depend on it."""
+    images under the configuration ``fields``, with the aggregation of
+    ``benchmark/reference/<aggregation>.py``.  ``block_rows`` rows are
+    aggregated at a time, or all of them where the module sets
+    ``WHOLE_IMAGE``; the result does not depend on it."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}")
     cfg = config(fields)
@@ -275,6 +280,8 @@ def disparity(left, right, fields: dict, aggregation: str, device="cpu",
         ls = pad_edge(channel_stack(imgs[0]), 2, r, r)
         rs = pad_edge(channel_stack(imgs[1]), 2, r + D - 1, r)
         h = ls.shape[1]
+        if getattr(agg, "WHOLE_IMAGE", False):
+            block_rows = h
         rows = []
         for y0 in range(0, h, block_rows):
             y1 = min(h, y0 + block_rows)

@@ -16,7 +16,9 @@ innermost span open at that instant on the roots' thread, and to
 program.  The root's own instants, between its stages, go to
 ``pipeline.input``: the pipeline's few microseconds of routing between
 stages are host work of the same layer.  So the five buckets partition the
-idle time of ``W``.
+idle time of ``W``.  A span of another name, nested inside one of theirs,
+takes the idle instants at which it is the innermost, and ``idle_ms``
+reads it by its name.
 
 Every reader returns None where the log holds fewer roots than the window
 has requests (a daemon's spans live in its own process; a program without
@@ -76,8 +78,9 @@ def innermost(spans) -> list:
 
 def idle_by_span(device, spans, w0: float, w1: float) -> dict:
     """Idle time of [w0, w1] (ns) by the innermost span open, ``OUTSIDE``
-    where none is.  ``device``: (start_ns, end_ns) intervals; ``spans``:
-    (start_ns, end_ns, name) of one thread, nested."""
+    where none is: every bucket, and every span name of ``spans`` that
+    meets the window, idle or not.  ``device``: (start_ns, end_ns)
+    intervals; ``spans``: (start_ns, end_ns, name) of one thread, nested."""
     busy = []
     for s, e in sorted((max(s, w0), min(e, w1)) for s, e in device if e > w0 and s < w1):
         if busy and s <= busy[-1][1]:
@@ -88,6 +91,7 @@ def idle_by_span(device, spans, w0: float, w1: float) -> dict:
     idle = [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
     segs = [(max(s, w0), min(e, w1), n) for s, e, n in innermost(spans) if e > w0 and s < w1]
     out = dict.fromkeys(BUCKETS, 0.0)
+    out.update((name, 0.0) for s, e, name in spans if e > w0 and s < w1 and name not in out)
     j = 0
     for a, b in idle:
         covered = 0.0
@@ -98,7 +102,7 @@ def idle_by_span(device, spans, w0: float, w1: float) -> dict:
             s, e, name = segs[k]
             part = min(b, e) - max(a, s)
             if part > 0:
-                out[name] = out.get(name, 0.0) + part
+                out[name] += part
                 covered += part
             k += 1
         out[OUTSIDE] += (b - a) - covered
@@ -130,9 +134,11 @@ def _reading(obs):
 
 
 def idle_ms(obs, bucket: str):
-    """Device idle per cycle, in ms, while ``bucket`` is the innermost span."""
+    """Device idle per cycle, in ms, while ``bucket`` is the innermost span:
+    one of ``BUCKETS``, or any span name, which reads 0.0 where the window
+    holds such a span that saw no idle time and None where it holds none."""
     reading = _reading(obs)
-    if reading is None:
+    if reading is None or bucket not in reading[0]:
         return None
     idle, cycles = reading
     return idle[bucket] / cycles / 1e6

@@ -5,6 +5,10 @@ configuration's size, on several seeds.
     python benchmark/tests/control_readings.py --config kitti_sep \\
         --seeds 1 2 3 --control-seeds 1 2 3 [--out readings.json]
 
+or, for a preset that no configuration file names yet, ``--preset
+kitti_sgm --reference sgm --height 375 --width 1242`` in place of
+``--config`` (with ``--override key=value`` for a field of the preset).
+
 For each seed it makes the cell's pool of pairs as a run does, and reads
 ``correctness.READINGS`` of
 
@@ -15,9 +19,11 @@ For each seed it makes the cell's pool of pairs as a run does, and reads
   - for a separable configuration also the program's own lower-precision
     path, ``volume_dtype="bfloat16"``;
 
-each against the plain reference in float32.  It prints one JSON line per
-(seed, side) and the worst reading of each side.  ``test_bm_control.py``
-runs it on the card.
+each against the plain reference in float32.  Each record also carries
+the reference's seconds for its pair, its peak device memory above what
+was held before it, and its bad-2.0 against the pair's ground truth.  It
+prints one JSON line per (seed, side) and the worst reading of each side.
+``test_bm_control.py`` runs it on the card.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspa
 import numpy as np  # noqa: E402
 
 from benchmark import correctness, harness  # noqa: E402
+from benchmark.inputs import evaluate  # noqa: E402
 from benchmark.reference import plain  # noqa: E402
 
 FORMS = ("float32", "uint16_x256")
@@ -66,9 +73,15 @@ def readings(config: dict, seeds, control_seeds, device: str = "cuda", pool: int
     for seed in sorted(set(seeds) | set(control_seeds)):
         for k, pair in enumerate(harness.make_pool(config, seed, pool)):
             l, r = pair["left"], pair["right"]
+            if device == "cuda":
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             ref = plain.disparity(l, r, config["stereo_config"], config["reference"], device=device)
             ref_s = time.perf_counter() - t0
+            ref_peak = torch.cuda.max_memory_allocated() - held if device == "cuda" else None
+            ref_bad2 = evaluate.bad_delta(ref, pair["gt"], 2.0, ~pair["occluded"])
             answers = {}
             if seed in seeds:
                 answers.update({name: m(l, r).cpu().numpy() for name, m in sides.items()})
@@ -79,7 +92,8 @@ def readings(config: dict, seeds, control_seeds, device: str = "cuda", pool: int
                     precision="tf32")
             for side, answer in answers.items():
                 rec = {"config": config["name"], "seed": seed, "pair": k, "side": side,
-                       "reference_s": ref_s, **_read(answer, ref)}
+                       "reference_s": ref_s, "reference_peak_bytes": ref_peak,
+                       "reference_bad_2": ref_bad2, **_read(answer, ref)}
                 records.append(rec)
                 emit(json.dumps(rec))
             if device == "cuda":
@@ -92,14 +106,42 @@ def readings(config: dict, seeds, control_seeds, device: str = "cuda", pool: int
     return records
 
 
+def preset_config(preset: str, reference: str, height: int, width: int,
+                  overrides: dict) -> dict:
+    """A configuration of the program's preset ``preset`` with
+    ``overrides``, at ``height`` x ``width``, read against the reference
+    module ``reference``."""
+    import dataclasses
+
+    from aswstereomatch_torch.config import get_preset
+
+    cfg = get_preset(preset).replace(**overrides)
+    name = preset + "".join(f".{k}-{v}" for k, v in sorted(overrides.items()))
+    return {"name": name, "height": height, "width": width,
+            "stereo_config": dataclasses.asdict(cfg), "reference": reference}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", required=True)
+    which = ap.add_mutually_exclusive_group(required=True)
+    which.add_argument("--config", help="a configuration file's name under benchmark/configs")
+    which.add_argument("--preset", help="a preset of the program, with --reference and the size")
+    ap.add_argument("--reference", help="the reference module of --preset")
+    ap.add_argument("--height", type=int)
+    ap.add_argument("--width", type=int)
+    ap.add_argument("--override", action="append", default=[], metavar="KEY=JSON",
+                    help="a field of --preset, its value as JSON")
     ap.add_argument("--seeds", type=int, nargs="*", default=[])
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
     ap.add_argument("--out")
     args = ap.parse_args(argv)
-    config = harness.load_json(harness.BENCH_DIR / "configs" / f"{args.config}.json")
+    if args.config:
+        config = harness.load_json(harness.BENCH_DIR / "configs" / f"{args.config}.json")
+    else:
+        if not (args.reference and args.height and args.width):
+            ap.error("--preset needs --reference, --height and --width")
+        overrides = {k: json.loads(v) for k, v in (o.split("=", 1) for o in args.override)}
+        config = preset_config(args.preset, args.reference, args.height, args.width, overrides)
     records = readings(config, args.seeds, args.control_seeds)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

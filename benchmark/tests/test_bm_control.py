@@ -4,6 +4,8 @@ one) must come out not correct, and the program must come out correct, on
 three seeds.  Run on a card with
 
     python -m pytest benchmark/tests/test_bm_control.py
+
+The readings' own records are checked on the CPU at a small size.
 """
 
 import pytest
@@ -46,3 +48,21 @@ def test_control_fails_and_program_passes(records, config_name, form):
             assert worst["control_tf32"] > limit, (seed, name)
             if "program_bf16" in worst:
                 assert worst["program_bf16"] > limit, (seed, name)
+
+
+def test_readings_of_a_preset_on_the_cpu():
+    """A preset that no configuration file names, read as the card reads
+    it: the program's eager path is the reference bit for bit on the CPU,
+    the control departs from it, and each record carries the reference's
+    time and its bad-2.0."""
+    config = control_readings.preset_config("kitti_sgm", "sgm", 24, 40, {"max_disparity": 8})
+    assert config["stereo_config"]["aggregation"] == "sgm"
+    recs = control_readings.readings(config, [2**31 + 5], [2**31 + 5], device="cpu", pool=2,
+                                     emit=lambda s: None)
+    assert {(r["side"], r["pair"]) for r in recs} == {
+        (s, k) for s in ("program", "control_tf32") for k in (0, 1)}
+    for r in recs:
+        assert r["reference_s"] > 0 and r["reference_peak_bytes"] is None
+        assert 0 <= r["reference_bad_2"] < 0.05
+        off = r["float32"]["share_off_1e-05"]
+        assert off == 0 if r["side"] == "program" else off > 0.1

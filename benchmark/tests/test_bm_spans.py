@@ -137,6 +137,34 @@ def test_the_warmup_root_is_left_out(with_log):
     assert read("caller.idle_ms", obs(n + 1, dev)) > 10 * a["caller.idle_ms"]
 
 
+def test_a_span_outside_the_buckets(with_log):
+    """A span name outside ``BUCKETS`` reads the idle time in which it is the
+    innermost span: 0.0 where the window holds it but the device never
+    idled in it, None where the window holds no such span; what it reads
+    leaves its parent's bucket."""
+    n = 4
+    base = log(n)
+    inner = []
+    for r in base:
+        if r.name == "pipeline.aggregate":  # 500..5000 us, after preprocess's 520..1900
+            inner += [S(r.request, "pipeline.cost", r.name, r.thread,
+                        r.start_ns + 2000 * US, r.start_ns + 2500 * US),
+                      S(r.request, "pipeline.sgm", r.name, r.thread,
+                        r.start_ns + 2600 * US, r.start_ns + 3000 * US)]
+    dev = [(r.start_ns / 1e3 - 1, r.end_ns / 1e3 + 1, "k") for r in inner
+           if r.name == "pipeline.sgm"]
+    with_log(base)
+    before = {b: stages.idle_ms(obs(n, dev), b) for b in stages.BUCKETS}
+    assert stages.idle_ms(obs(n, dev), "pipeline.cost") is None
+    with_log(base + inner)
+    assert stages.idle_ms(obs(n, dev), "pipeline.sgm") == 0.0
+    assert stages.idle_ms(obs(n, dev), "pipeline.cost") == pytest.approx(0.5, abs=1e-6)
+    assert stages.idle_ms(obs(n, dev), "pipeline.scan") is None
+    after = {b: stages.idle_ms(obs(n, dev), b) for b in stages.BUCKETS}
+    agg = before.pop("pipeline.aggregate") - after.pop("pipeline.aggregate")
+    assert agg == pytest.approx(0.5, abs=1e-6) and before == after
+
+
 def test_host_metrics(with_log):
     n = 5
     with_log(log(n))
