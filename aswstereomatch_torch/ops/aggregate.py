@@ -33,6 +33,7 @@ import torch
 
 from ..config import StereoConfig
 from ..utils.convert import axial_weights_np, spatial_weights_np
+from ..utils.profiling import span
 from . import cost as cost_ops
 from . import preprocess
 from .cuda import sgm_kernel
@@ -323,5 +324,8 @@ def aggregated_volume(
         vol_ext = cost_ops.cost_volume(left, right, cfg, x_extend=cfg.window_radius)
         return aggregate_box(vol_ext, cfg)
     if cfg.aggregation == "sgm":
-        return aggregate_sgm(cost_ops.cost_volume(left, right, cfg), cfg)
+        with span("pipeline.cost"):
+            vol = cost_ops.cost_volume(left, right, cfg)
+        with span("pipeline.sgm"):
+            return aggregate_sgm(vol, cfg)
     return cost_ops.cost_volume(left, right, cfg)

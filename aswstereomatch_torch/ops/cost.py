@@ -17,6 +17,10 @@ import torch
 from ..config import StereoConfig
 from . import preprocess
 
+# Materialized raw volumes since the last reset (``cost_volume`` calls), beside
+# the kernels' ``launches`` counters.
+volumes = 0
+
 
 class CostPlanes(NamedTuple):
     lc: torch.Tensor   # (H, W + 2*rx, C) left color, edge-padded by rx
@@ -82,6 +86,8 @@ def cost_volume(
     left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig, x_extend: int = 0
 ) -> torch.Tensor:
     """Materialized (H, W + 2*x_extend, D) raw cost volume."""
+    global volumes
+    volumes += 1
     planes = precompute(left, right, cfg, x_extend)
     planes_d = [cost_plane(planes, d, cfg) for d in range(cfg.max_disparity)]
     return torch.stack(planes_d, dim=-1)

@@ -39,7 +39,9 @@ opens five: ``pipeline.call`` around each ``StereoMatcher`` request, and
 inside it ``pipeline.input`` (the input's copy and widening),
 ``pipeline.aggregate`` (the kernel wrapper or the eager volume),
 ``pipeline.preprocess`` (the kernels' channel stacks, inside
-``pipeline.aggregate``) and ``pipeline.postprocess``.  ``spans()`` returns
+``pipeline.aggregate``) and ``pipeline.postprocess``.  SGM's aggregation
+opens two more inside ``pipeline.aggregate``: ``pipeline.cost`` (the raw
+cost volume) and then ``pipeline.sgm`` (the scan).  ``spans()`` returns
 the log, which keeps the last ``SPAN_LOG_RECORDS`` records;
 ``clear_spans()`` empties it.
 """

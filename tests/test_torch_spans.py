@@ -3,7 +3,8 @@
 Without a profiler a span is one flag check: nothing recorded, no
 ``record_function`` entered, the same map.  Under a profiler every
 ``StereoMatcher`` request is one ``pipeline.call`` root whose stages carry
-its request id and nest as the pipeline does, and every span's times lie
+its request id and nest as the pipeline does (SGM's cost build and scan
+inside the aggregation, one raw volume a pair), and every span's times lie
 within the profiler's own event of the same name: the spans share the
 profiler's clock, which is the device trace's.
 """
@@ -18,6 +19,7 @@ import torch
 
 import aswstereomatch_torch as ast
 from aswstereomatch_torch.models import pipeline
+from aswstereomatch_torch.ops import cost
 from aswstereomatch_torch.ops.cuda import common, stacks_kernel
 from aswstereomatch_torch.utils import profiling, synthetic
 
@@ -44,6 +46,20 @@ def _matcher(median=True):
                                          median_filter=median, max_disparity=8)
 
 
+def _sgm_matcher(paths):
+    """``kitti_sgm``'s fields at the pair's size: the eager raw cost volume,
+    then the SGM scan's plain version."""
+    return ast.StereoMatcher.from_preset("kitti_sgm", device="cpu", max_disparity=8,
+                                         sgm_paths=paths)
+
+
+# The matchers the span tests run, by route; SGM adds its two stages inside
+# ``pipeline.aggregate``.
+MATCHERS = {"eager": _matcher, "kernel": _matcher,
+            "sgm_4_paths": lambda: _sgm_matcher(4), "sgm_8_paths": lambda: _sgm_matcher(8)}
+SGM_STAGES = ["pipeline.cost", "pipeline.sgm"]
+
+
 def _profiler():
     return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
 
@@ -61,7 +77,8 @@ def _by_request(records):
     return out
 
 
-def test_without_a_profiler_a_span_records_nothing(monkeypatch, pair):
+@pytest.mark.parametrize("route", ["eager", "sgm_4_paths", "sgm_8_paths"])
+def test_without_a_profiler_a_span_records_nothing(monkeypatch, pair, route):
     entered = []
     real = torch.profiler.record_function
 
@@ -70,22 +87,25 @@ def test_without_a_profiler_a_span_records_nothing(monkeypatch, pair):
         return real(name)
 
     monkeypatch.setattr(torch.profiler, "record_function", counting)
-    m = _matcher()
+    m = MATCHERS[route]()
     plain = m(pair["left"], pair["right"])
     assert profiling.spans() == [] and entered == []
     assert profiling.span(ROOT) is profiling.span("pipeline.input")  # one shared no-op
     with _profiler():
         traced = m(pair["left"], pair["right"])
-    assert set(entered) == {ROOT, "pipeline.input", "pipeline.aggregate", "pipeline.postprocess"}
+    want = {ROOT, "pipeline.input", "pipeline.aggregate", "pipeline.postprocess"}
+    if route.startswith("sgm"):
+        want.update(SGM_STAGES)
+    assert set(entered) == want
     assert len(profiling.spans()) == len(entered)
     assert torch.equal(plain, traced)
 
 
-@pytest.mark.parametrize("route", ["eager", "kernel"])
+@pytest.mark.parametrize("route", list(MATCHERS))
 def test_each_call_is_one_root_with_its_stages(monkeypatch, pair, route):
     if route == "kernel":
         _kernel_route(monkeypatch)
-    m = _matcher()
+    m = MATCHERS[route]()
     with _profiler():
         for _ in range(3):
             m(pair["left"], pair["right"])
@@ -94,22 +114,50 @@ def test_each_call_is_one_root_with_its_stages(monkeypatch, pair, route):
     assert len(roots) == 3 and len({r.request for r in roots}) == 3
     assert all(r.parent is None and r.request is not None for r in roots)
     parents = {"pipeline.input": ROOT, "pipeline.aggregate": ROOT,
-               "pipeline.postprocess": ROOT, "pipeline.preprocess": "pipeline.aggregate"}
+               "pipeline.postprocess": ROOT, "pipeline.preprocess": "pipeline.aggregate",
+               "pipeline.cost": "pipeline.aggregate", "pipeline.sgm": "pipeline.aggregate"}
     for root in roots:
         mine = [r for r in records if r.request == root.request and r.name != ROOT]
         want = ["pipeline.input", "pipeline.aggregate", "pipeline.postprocess"]
         if route == "kernel":
             want.insert(2, "pipeline.preprocess")
+        if route.startswith("sgm"):
+            want[2:2] = SGM_STAGES
         assert sorted(r.name for r in mine) == sorted(want)
         assert [r.name for r in sorted(mine, key=lambda r: r.start_ns)] == want
         for r in mine:
             assert r.parent == parents[r.name] and r.thread == root.thread
             assert root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns
-    # the stages follow one another inside the root
+    # the stages follow one another inside the root, and inside the aggregation
     for root in roots:
-        top = sorted((r for r in records if r.request == root.request and r.parent == ROOT),
-                     key=lambda r: r.start_ns)
-        assert all(a.end_ns <= b.start_ns for a, b in zip(top, top[1:]))
+        for parent in (ROOT, "pipeline.aggregate"):
+            level = sorted((r for r in records
+                            if r.request == root.request and r.parent == parent),
+                           key=lambda r: r.start_ns)
+            assert all(a.end_ns <= b.start_ns for a, b in zip(level, level[1:]))
+        agg = next(r for r in records
+                   if r.request == root.request and r.name == "pipeline.aggregate")
+        assert all(agg.start_ns <= r.start_ns <= r.end_ns <= agg.end_ns for r in records
+                   if r.request == root.request and r.parent == "pipeline.aggregate")
+
+
+@pytest.mark.parametrize("paths", [4, 8])
+def test_one_raw_volume_per_sgm_pair(monkeypatch, pair, paths):
+    """``cost.volumes`` counts the materialized raw volumes: one per SGM pair,
+    with the profiler on or off, single or batched."""
+    monkeypatch.setattr(cost, "volumes", 0)
+    m = _sgm_matcher(paths)
+    m(pair["left"], pair["right"])
+    assert cost.volumes == 1
+    with _profiler():
+        m(pair["left"], pair["right"])
+    assert cost.volumes == 2
+    both = torch.stack([torch.from_numpy(pair["left"])] * 2)
+    m.batch(both, torch.stack([torch.from_numpy(pair["right"])] * 2))
+    assert cost.volumes == 4
+    _kernel_route(monkeypatch)  # the fused kernels' route builds no volume
+    _matcher()(pair["left"], pair["right"])
+    assert cost.volumes == 4
 
 
 def _open_span_when_called(monkeypatch, module, name):
