@@ -6,6 +6,11 @@ Counterpart of ``aswstereomatch_tpu.ops.cost``.  Per the pinned spec
   TAD+grad:  C = alpha * min(AD, tau1) + (1-alpha) * min(|gLp - gRp(x-d)|, tau2)
 defined on the x-extended domain x in [-rx, W-1+rx] that aggregation taps,
 where Lp/Rp are the edge-padded virtual planes (Rp by rx + D - 1 on the left).
+
+``cost_volume`` materializes the whole volume: for CPU tensors by the plain
+loop over d (``cuda/cost_kernel.py::reference``), for CUDA tensors in one
+launch of the hand-written kernel (``cuda/cost_kernel.cu``), which raises if
+it cannot take the planes.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 
 from ..config import StereoConfig
 from . import preprocess
+from .cuda import cost_kernel
 
 # Materialized raw volumes since the last reset (``cost_volume`` calls), beside
 # the kernels' ``launches`` counters.
@@ -85,9 +91,11 @@ def cost_plane(planes: CostPlanes, d: int, cfg: StereoConfig) -> torch.Tensor:
 def cost_volume(
     left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig, x_extend: int = 0
 ) -> torch.Tensor:
-    """Materialized (H, W + 2*x_extend, D) raw cost volume."""
+    """Materialized (H, W + 2*x_extend, D) raw cost volume: the plain loop
+    for CPU tensors, the cost kernel for any other."""
     global volumes
     volumes += 1
     planes = precompute(left, right, cfg, x_extend)
-    planes_d = [cost_plane(planes, d, cfg) for d in range(cfg.max_disparity)]
-    return torch.stack(planes_d, dim=-1)
+    if planes.lc.device.type == "cpu":
+        return cost_kernel.reference(planes, cfg)
+    return cost_kernel.cost_volume(planes, cfg)

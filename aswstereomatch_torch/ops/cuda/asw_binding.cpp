@@ -3,11 +3,13 @@
 // asw_sep_wta (separable ASW, asw_sep_kernel.cu), asw_dlanes_wta (left-only
 // ASW or box, asw_dlanes_kernel.cu), asw_sym_dlanes_wta (symmetric ASW,
 // asw_sym_dlanes_kernel.cu), sgm_aggregate (semi-global aggregation,
-// sgm_kernel.cu) and channel_stacks (both views' channel stacks,
-// stacks_kernel.cu).  Each checks its inputs, allocates the outputs and
-// launches on the current CUDA stream (sgm_aggregate writes into the
-// scratch its wrapper allocated); a launch error raises.  They have only a CUDA implementation: CPU tensors take the plain
-// PyTorch versions in the ops/cuda/*.py wrappers before they get here.
+// sgm_kernel.cu), channel_stacks (both views' channel stacks,
+// stacks_kernel.cu) and cost_volume (the raw cost volume, cost_kernel.cu).
+// Each checks its inputs, allocates the outputs and launches on the
+// current CUDA stream (sgm_aggregate writes into the scratch its wrapper
+// allocated); a launch error raises.  They have only a CUDA implementation:
+// CPU tensors take the plain PyTorch versions in the ops/cuda/*.py wrappers
+// before they get here.
 // channel_stacks_table writes stacks_kernel.cu's constant table (a CPU
 // tensor) on one device, once per process: its wrapper calls it.
 
@@ -59,6 +61,10 @@ extern "C" int channel_stacks_set_table(const float* table, int n);
 extern "C" int channel_stacks_launch(const float* left, const float* right, int H, int W,
                                      int C, int r, int D, float* ls, float* rs,
                                      void* stream);
+extern "C" int cost_volume_launch(const float* lc, const float* rc, const float* gl,
+                                  const float* gr, int H, int Wo, int C, int D, int cost_ad,
+                                  float inv_c, float alpha, float one_minus_alpha,
+                                  float tau_color, float tau_grad, float* out, void* stream);
 extern "C" const char* asw_error_string(int err);
 
 namespace {
@@ -296,6 +302,38 @@ std::tuple<at::Tensor, at::Tensor> channel_stacks(const at::Tensor& left,
   return {ls, rs};
 }
 
+// lc (H, W', C), rc (H, W' + D - 1, C), gl (H, W'), gr (H, W' + D - 1) ->
+// the raw cost volume (H, W', D).
+at::Tensor cost_volume(const at::Tensor& lc, const at::Tensor& rc, const at::Tensor& gl,
+                       const at::Tensor& gr, int64_t D, int64_t cost_ad, double inv_c,
+                       double alpha, double one_minus_alpha, double tau_color,
+                       double tau_grad) {
+  check_input(lc, "lc", 3);
+  check_input(rc, "rc", 3);
+  check_input(gl, "gl", 2);
+  check_input(gr, "gr", 2);
+  const int64_t H = lc.size(0), Wo = lc.size(1), C = lc.size(2);
+  TORCH_CHECK(C == 1 || C == 3, "lc must have 1 or 3 channels");
+  TORCH_CHECK(H >= 1 && Wo >= 1 && D >= 1, "empty planes or D < 1");
+  TORCH_CHECK(rc.size(0) == H && rc.size(1) == Wo + D - 1 && rc.size(2) == C,
+              "rc must be (H, W' + D - 1, C)");
+  TORCH_CHECK(gl.size(0) == H && gl.size(1) == Wo, "gl must be (H, W')");
+  TORCH_CHECK(gr.size(0) == H && gr.size(1) == Wo + D - 1, "gr must be (H, W' + D - 1)");
+  TORCH_CHECK(rc.device() == lc.device() && gl.device() == lc.device() &&
+                  gr.device() == lc.device(),
+              "the planes must share one device");
+  TORCH_CHECK(H < (int64_t)1 << 30 && Wo + D < (int64_t)1 << 30, "planes too large");
+  c10::cuda::CUDAGuard guard(lc.device());
+  at::Tensor out = at::empty({H, Wo, D}, lc.options());
+  const int err = cost_volume_launch(
+      lc.data_ptr<float>(), rc.data_ptr<float>(), gl.data_ptr<float>(), gr.data_ptr<float>(),
+      (int)H, (int)Wo, (int)C, (int)D, (int)cost_ad, (float)inv_c, (float)alpha,
+      (float)one_minus_alpha, (float)tau_color, (float)tau_grad, out.data_ptr<float>(),
+      stream_of(lc));
+  TORCH_CHECK(err == 0, "cost_volume launch failed: ", asw_error_string(err));
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(asw_torch, m) {
@@ -324,6 +362,10 @@ TORCH_LIBRARY(asw_torch, m) {
       "-> Tensor");
   m.def("channel_stacks(Tensor left, Tensor right, int r, int D) -> (Tensor, Tensor)");
   m.def("channel_stacks_table(Tensor table, int device) -> ()");
+  m.def(
+      "cost_volume(Tensor lc, Tensor rc, Tensor gl, Tensor gr, int D, int cost_ad, "
+      "float inv_c, float alpha, float one_minus_alpha, float tau_color, float tau_grad) "
+      "-> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
@@ -333,6 +375,7 @@ TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
   m.impl("asw_sym_dlanes_wta", &asw_sym_dlanes_wta);
   m.impl("sgm_aggregate", &sgm_aggregate);
   m.impl("channel_stacks", &channel_stacks);
+  m.impl("cost_volume", &cost_volume);
 }
 
 TORCH_LIBRARY_IMPL(asw_torch, CPU, m) {

@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Six kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
+Seven kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
 the separable-ASW kernel (ops/cuda/asw_sep_kernel.cu); K3, the d-lanes
 kernel for left-only ASW and box (ops/cuda/asw_dlanes_kernel.cu); K4, the
 symmetric d-lanes kernel (ops/cuda/asw_sym_dlanes_kernel.cu); SGM, the
-semi-global scan kernel (ops/cuda/sgm_kernel.cu); and the stack kernel
+semi-global scan kernel (ops/cuda/sgm_kernel.cu); the stack kernel
 (ops/cuda/stacks_kernel.cu), which builds both views' channel stacks for
-K1-K4 in one launch a pair.  Phases, one line each per kernel or path; any
-failure exits non-zero:
+K1-K4 in one launch a pair; and the cost kernel (ops/cuda/cost_kernel.cu),
+which builds the eager path's raw (H, W, D) cost volume in one launch.
+Phases, one line each per kernel or path; any failure exits non-zero:
 
   1. device  — refuses to run without CUDA; prints the card's name and
                power limit (nvidia-smi) and the torch / CUDA versions;
@@ -62,9 +63,10 @@ failure exits non-zero:
                K4 1 times) and no other, and the stack kernel once per
                launch of K1-K4 (here and in phase 7).  A "dlanes" config no d-lanes
                kernel supports (D = 256) must raise.  kitti_sgm three
-               requests and a batch of two, and one 8-path pair (SGM 6),
-               bad-2.0 < 5%, each map equal bit for bit to the same
-               pipeline with the plain SGM.  The confidence surface at
+               requests and a batch of two, and one 8-path pair (SGM 6,
+               the cost kernel 6: one volume a pair), bad-2.0 < 5%, each
+               map equal bit for bit to the same pipeline with the plain
+               cost loop and the plain SGM.  The confidence surface at
                middlebury_asw_full (K1), kitti_sep (K2) and kitti_sgm
                (SGM): disp equals match_pair's bit for bit, and
                lr_valid & (uniq_pct >= r) reproduces the
@@ -95,6 +97,10 @@ failure exits non-zero:
                bit, then timed: the kernel's device time by the profiler,
                both by CUDA events around a call) at 1242x375 D=128 and
                450x375 D=64 r=16, beside its byte bound (stacks_bound);
+               the cost kernel against the plain loop over d (bit for bit,
+               then timed the same way, and the plain loop by CUDA
+               events) at 1242x375 D=128 and 450x375 D=64, beside its byte
+               bound (cost_bound);
   7. entry   — the user's entry points at 1242x375 D=128, launch counts
                read around each: whether the native codec built (the
                compiler's words if not); ``python -m
@@ -186,7 +192,8 @@ failure exits non-zero:
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
-k1_bound / k2_bound / box_bound / sgm_bound / stacks_bound); the last line is
+k1_bound / k2_bound / box_bound / sgm_bound / stacks_bound / cost_bound); the
+last line is
 {"ok": true, "device": {...}}.  Imports torch, numpy and the port only (no
 jax).
 """
@@ -469,6 +476,16 @@ def stacks_bound(H: int, W: int, r: int, D: int) -> tuple:
     W + 2r + D - 1) written once.  The ~200 FP32 operations a pixel (15 of
     them IEEE divisions) take less time than the bytes at these rates."""
     nbytes = 4 * (2 * 3 * H * W + 7 * H * (2 * (W + 2 * r) + D - 1))
+    return _bound(0.0, 0.0, nbytes)
+
+
+def cost_bound(H: int, Wo: int, C: int, D: int) -> tuple:
+    """The raw cost volume at its least traffic: the edge-padded planes of
+    ``cost.precompute`` read once (colour (H, Wo, C) and (H, Wo + D - 1, C),
+    gradient (H, Wo) and (H, Wo + D - 1)) and the (H, Wo, D) volume written
+    once.  Its ~15 FP32 operations an element take less time than its 4
+    bytes at these rates."""
+    nbytes = 4 * (H * (2 * Wo + D - 1) * (C + 1) + H * Wo * D)
     return _bound(0.0, 0.0, nbytes)
 
 
@@ -1765,7 +1782,7 @@ def main() -> int:
     from aswstereomatch_torch.ops import cost as cost_ops
     from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
                                                asw_sym_dlanes_kernel, build, common,
-                                               sgm_kernel, stacks_kernel)
+                                               cost_kernel, sgm_kernel, stacks_kernel)
     from aswstereomatch_torch.utils import evaluate, plan_sweep, synthetic
 
     # ---- 1. device ------------------------------------------------------
@@ -1944,7 +1961,7 @@ def main() -> int:
 
     def reset():
         torch.cuda.synchronize()
-        for m in (*kernels.values(), stacks_kernel):
+        for m in (*kernels.values(), stacks_kernel, cost_kernel):
             m.launches = 0
 
     def launched(label, want, stack_builds=True) -> int:
@@ -2049,7 +2066,7 @@ def main() -> int:
           flush=True)
 
     # SGM's path: kitti_sgm requests and a batch of two, one 8-path pair;
-    # the raw cost volume is plain PyTorch, its aggregation the SGM kernel
+    # the raw cost volume in the cost kernel, its aggregation the SGM kernel
     sgm_m = Matcher.from_preset("kitti_sgm")
     sgm8 = Matcher.from_preset("kitti_sgm", sgm_paths=8)
     for m in (sgm_m, sgm8):
@@ -2060,25 +2077,35 @@ def main() -> int:
     dsg = serve(sgm_m, reqs_k, 2)
     dsg8 = serve(sgm8, [pk], 0)[0]
     sgm_launches = launched("SGM's path", {"SGM": 6})
+    cost_launches = cost_kernel.launches
+    if cost_launches != 6:
+        fail(f"serve: SGM's path launched the cost kernel {cost_launches} times, expected 6 "
+             f"(one volume a pair)")
     bads_g = [check_map("kitti_sgm", d, p, 128, 0.05) for p, d in zip(reqs_k, dsg)]
     bad_g8 = check_map("kitti_sgm 8 paths", dsg8, pk, 128, 0.05)
-    # the same pipeline with the plain SGM on the card: the same map, bit for bit
-    kernel_aggregate = sgm_kernel.aggregate
+    # the same pipeline with the plain cost loop and the plain SGM on the
+    # card: the same map, bit for bit
+    kernel_aggregate, kernel_cost = sgm_kernel.aggregate, cost_kernel.cost_volume
     sgm_kernel.aggregate = sgm_kernel.aggregate_reference
+    cost_kernel.cost_volume = cost_kernel.reference
     reset()
     try:
         plain_maps = [m(u8(pk["left"]), u8(pk["right"])).cpu().numpy() for m in (sgm_m, sgm8)]
     finally:
-        sgm_kernel.aggregate = kernel_aggregate
+        sgm_kernel.aggregate, cost_kernel.cost_volume = kernel_aggregate, kernel_cost
     launched("the plain SGM pipeline", {})
+    if cost_kernel.launches:
+        fail(f"serve: the plain SGM pipeline launched the cost kernel {cost_kernel.launches} "
+             f"times")
     for paths, got, want in ((4, dsg[0], plain_maps[0]), (8, dsg8, plain_maps[1])):
         if not np.array_equal(got, want):
-            fail(f"serve: kitti_sgm {paths} paths differs from the plain-SGM pipeline on "
+            fail(f"serve: kitti_sgm {paths} paths differs from the plain pipeline on "
                  f"{int((got != want).sum())} pixels")
     print(f"serve SGM: 3 requests kitti_sgm 1242x375 D=128 bad_2 "
           f"{[round(b, 6) for b in bads_g]}, batch of 2 == singles, 8 paths bad_2 "
-          f"{bad_g8:.6f}, density 1.0; maps equal the plain-SGM pipeline's bit for bit "
-          f"(4 and 8 paths); SGM launches {sgm_launches} (5 + 1), other kernels 0",
+          f"{bad_g8:.6f}, density 1.0; maps equal the plain pipeline's (plain cost loop, "
+          f"plain SGM) bit for bit (4 and 8 paths); SGM launches {sgm_launches} (5 + 1), "
+          f"cost kernel {cost_launches}, other kernels 0",
           flush=True)
 
     # The confidence surface on each kind of path: its disp is match_pair's,
@@ -2242,8 +2269,38 @@ def main() -> int:
               f"{100 * bound_ms / t['ms']:.1f}%); plain stack build {t['plain_ms']:.3f} ms",
               flush=True)
 
+    # The cost kernel against the plain loop over d: the raw volume bit for
+    # bit, then timed (the kernel's device time from the profiler, the call
+    # with precompute's ops by CUDA events, the plain loop by CUDA events)
+    # beside the byte bound
+    for geo, p, c in (("cost 1242x375 D=128", pk, cfg_sgm),
+                      ("cost 450x375 D=64", reqs[0], cfg_sgm.replace(max_disparity=64))):
+        l = torch.from_numpy(p["left"]).to(dev)
+        r = torch.from_numpy(p["right"]).to(dev)
+        planes = cost_ops.precompute(l, r, c)
+        got = cost_kernel.cost_volume(planes, c)
+        want = cost_kernel.reference(planes, c)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"{geo}: the cost kernel differs from the plain loop on "
+                 f"{int((got.view(torch.int32) != want.view(torch.int32)).sum())} elements")
+        del got, want
+        H, Wo, C = planes.lc.shape
+        bound_ms, bound_by = cost_bound(H, Wo, C, c.max_disparity)
+        t = times[geo] = {  # ms: the kernel's device time; call_ms: cost_volume by CUDA events
+            "ms": _device_ms(lambda: cost_kernel.cost_volume(planes, c),
+                             "cost_volume_kernel", 50),
+            "call_ms": _median_ms(lambda: cost_ops.cost_volume(l, r, c), 20),
+            "plain_ms": _median_ms(lambda: cost_kernel.reference(planes, c), 5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print(f"times {geo} on {card}: cost kernel {t['ms']:.4f} ms on the card "
+              f"({t['call_ms']:.4f} ms by CUDA events around cost_volume, precompute's ops "
+              f"included), bit for bit with the plain loop (bound {bound_ms:.4f} ms by "
+              f"{bound_by}, {100 * bound_ms / t['ms']:.1f}%); plain loop {t['plain_ms']:.3f} ms",
+              flush=True)
+
     # SGM: the kernel over the raw cost volume, 4 and 8 paths; the raw cost
-    # volume (the Python loop over d, ops/cost.py) and kitti_sgm end to end
+    # volume (cost_volume, through the cost kernel) and kitti_sgm end to end
     for paths in (4, 8):
         c = cfg_sgm.replace(sgm_paths=paths)
         bound_ms, bound_by = sgm_bound(375, 1242, c)
@@ -2282,8 +2339,8 @@ def main() -> int:
               f"of their {floor_ms:.3f} ms floor); phases alone "
               + " / ".join(f"{x:.3f}" for x in t["phase_ms"])
               + f" ms; kernel call peak allocation {t['kernel_peak_alloc_mib']:.3f} MiB; "
-              f"plain {t['plain_ms']:.3f} ms; raw cost "
-              f"volume {t['cost_volume_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair; "
+              f"plain {t['plain_ms']:.3f} ms; raw cost volume (the cost kernel) "
+              f"{t['cost_volume_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair; "
               f"peak allocation of a call {t['peak_alloc_mib']:.3f} MiB", flush=True)
 
     # ---- 7. the entry points: serve, CLI, sweep -------------------------
@@ -2326,6 +2383,9 @@ def main() -> int:
         row("channel_stacks", "aswstereomatch_torch/ops/cuda/stacks_kernel.cu",
             "none: XLA fuses aswstereomatch_tpu/ops/preprocess.py::channel_stack", stack_launches,
             0.0, "stacks 1242x375 D=128", middlebury=times["stacks 450x375 D=64"]),
+        row("cost_volume", "aswstereomatch_torch/ops/cuda/cost_kernel.cu",
+            "none: XLA fuses aswstereomatch_tpu/ops/cost.py::cost_volume", cost_launches,
+            0.0, "cost 1242x375 D=128", middlebury=times["cost 450x375 D=64"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

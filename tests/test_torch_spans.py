@@ -19,8 +19,8 @@ import torch
 
 import aswstereomatch_torch as ast
 from aswstereomatch_torch.models import pipeline
-from aswstereomatch_torch.ops import cost
-from aswstereomatch_torch.ops.cuda import common, stacks_kernel
+from aswstereomatch_torch.ops import aggregate, cost
+from aswstereomatch_torch.ops.cuda import common, cost_kernel, sgm_kernel, stacks_kernel
 from aswstereomatch_torch.utils import profiling, synthetic
 
 ROOT = profiling.ROOT_SPAN
@@ -303,3 +303,24 @@ def test_the_log_is_bounded_and_clears(monkeypatch, pair):
     assert profiling.spans() is not profiling.spans()  # a copy
     profiling.clear_spans()
     assert profiling.spans() == []
+
+
+def test_cost_wraps_the_cost_kernel_launch(monkeypatch):
+    """Off the CPU SGM's raw volume goes to the cost kernel's wrapper, once,
+    inside the ``pipeline.cost`` span, and the plain loop does not run (meta
+    tensors and stand-in launches: no card here)."""
+    def launch(planes, cfg):
+        h, wo = planes.gl.shape
+        return torch.empty((h, wo, cfg.max_disparity), device=planes.gl.device)
+
+    monkeypatch.setattr(cost_kernel, "cost_volume", launch)
+    seen = _open_span_when_called(monkeypatch, cost_kernel, "cost_volume")
+    monkeypatch.setattr(cost_kernel, "reference", None)  # the CPU path must not run
+    monkeypatch.setattr(sgm_kernel, "aggregate", lambda vol, cfg: vol)
+    cfg = _sgm_matcher(8).cfg
+    left = torch.empty((6, 9, 3), device="meta")
+    with _profiler():
+        vol = aggregate.aggregated_volume(left, left, cfg)
+    assert vol.shape == (6, 9, cfg.max_disparity)
+    assert seen == ["pipeline.cost"]
+    assert sorted(rec.name for rec in profiling.spans()) == SGM_STAGES
