@@ -22,6 +22,12 @@ Backends:
   - "auto":  "cuda" for CUDA tensors when a kernel serves the config,
              "eager" otherwise.
 
+Both backends end the aggregation stage at the same WTA planes (the
+kernel's outputs, or ``wta.planes`` of the eager volume), and one
+post-process turns planes into a map: ``disparity``, which is ``disp_pre``
+(row-local) then the median, and which the sharded layouts in
+``parallel/`` call too.
+
 SGM (``aggregation="sgm"``) runs on the eager backend: its aggregation
 stage is the hand-written scan kernel (ops/cuda/sgm_kernel) on a CUDA
 tensor.  ``y_chunks > 1`` streams row bands on the eager path
@@ -40,54 +46,6 @@ from ..config import StereoConfig, get_preset
 from ..ops import aggregate, postprocess, preprocess, wta
 from ..ops.cuda import asw_dlanes_kernel, asw_kernel, asw_sep_kernel, asw_sym_dlanes_kernel
 from ..utils.profiling import span
-
-
-def aggregated_volume(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
-    """``aggregate.aggregated_volume``, the eager path's aggregation stage."""
-    with span("pipeline.aggregate"):
-        return aggregate.aggregated_volume(left, right, cfg)
-
-
-def disp_pre_from_volume(vol: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
-    """WTA + subpixel + LR/uniqueness gates + fill (row-local; no median)."""
-    disp_i = wta.wta(vol)
-    disp = wta.subpixel(vol, disp_i) if cfg.subpixel else disp_i.to(torch.float32)
-    valid = None
-    if cfg.lr_check:
-        disp_r_i = wta.wta(postprocess.right_volume(vol))
-        valid = postprocess.lr_check(disp_i, disp_r_i, cfg)
-    if cfg.uniqueness_ratio > 0:
-        bestc = torch.gather(vol, -1, disp_i.to(torch.int64)[..., None])[..., 0]
-        second = wta.second_best_excl_neighbors(vol, disp_i)
-        uv = wta.uniqueness_valid(bestc, second, cfg.uniqueness_ratio)
-        valid = uv if valid is None else valid & uv
-    return _apply_validity(disp, valid, cfg)
-
-
-def _apply_validity(disp, valid, cfg: StereoConfig) -> torch.Tensor:
-    if valid is not None:
-        if cfg.fill_holes:
-            disp = postprocess.fill_holes(disp, valid)
-        else:
-            disp = torch.where(valid, disp, torch.full_like(disp, -1.0))
-    return disp.to(torch.float32)
-
-
-def _guide_lab(left: torch.Tensor, cfg: StereoConfig):
-    if cfg.median_filter and cfg.median_mode == "weighted":
-        return preprocess.rgb_to_lab(left)
-    return None
-
-
-def _postprocess_from_volume(
-    vol: torch.Tensor, cfg: StereoConfig, left: torch.Tensor
-) -> torch.Tensor:
-    """WTA + subpixel + LR + fill + median from an aggregated volume."""
-    with span("pipeline.postprocess"):
-        disp = disp_pre_from_volume(vol, cfg)
-        if cfg.median_filter:
-            disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
-        return disp
 
 
 def kernel_for(cfg: StereoConfig):
@@ -169,34 +127,56 @@ def _kernel_wta(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> d
         return kernel.wta_outputs(left, right, cfg)
 
 
-def _disp_pre_from_wta(outs: dict, cfg: StereoConfig) -> torch.Tensor:
-    """Subpixel + LR + uniqueness + fill from the fused kernel's online-WTA
-    outputs (everything row-local; no median)."""
-    disp_i = outs["bestd"]
+def _planes(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig, backend: str,
+            ubest: bool = False) -> dict:
+    """One pair's WTA planes, where the aggregation stage ends on either
+    route: the kernel's outputs, or ``wta.planes`` of the eager volume
+    (``rbestd`` where the LR check reads it, ``ubest`` where the
+    uniqueness gate or the caller does), both inside ``pipeline.aggregate``."""
+    if backend == "cuda":
+        return _kernel_wta(left, right, cfg)
+    with span("pipeline.aggregate"):
+        vol = aggregate.aggregated_volume(left, right, cfg)
+        return wta.planes(vol, rbestd=cfg.lr_check, ubest=ubest or cfg.uniqueness_ratio > 0)
+
+
+def disp_pre(planes: dict, cfg: StereoConfig) -> torch.Tensor:
+    """Subpixel + LR + uniqueness + fill from one pair's WTA planes
+    (everything row-local; no median)."""
+    disp_i = planes["bestd"]
     if cfg.subpixel:
         disp = wta.subpixel_from_triple(
-            disp_i, outs["bestc"], outs["cm"], outs["cp"], cfg.max_disparity
+            disp_i, planes["bestc"], planes["cm"], planes["cp"], cfg.max_disparity
         )
     else:
         disp = disp_i.to(torch.float32)
     valid = None
     if cfg.lr_check:
-        valid = postprocess.lr_check(disp_i, outs["rbestd"], cfg)
+        valid = postprocess.lr_check(disp_i, planes["rbestd"], cfg)
     if cfg.uniqueness_ratio > 0:
-        uv = wta.uniqueness_valid(outs["bestc"], outs["ubest"], cfg.uniqueness_ratio)
+        uv = wta.uniqueness_valid(planes["bestc"], planes["ubest"], cfg.uniqueness_ratio)
         valid = uv if valid is None else valid & uv
-    return _apply_validity(disp, valid, cfg)
+    if valid is not None:
+        if cfg.fill_holes:
+            disp = postprocess.fill_holes(disp, valid)
+        else:
+            disp = torch.where(valid, disp, torch.full_like(disp, -1.0))
+    return disp.to(torch.float32)
 
 
-def _postprocess_from_wta(
-    outs: dict, cfg: StereoConfig, left: torch.Tensor
-) -> torch.Tensor:
-    """Post-process the fused kernel's online-WTA outputs (no volume)."""
-    with span("pipeline.postprocess"):
-        disp = _disp_pre_from_wta(outs, cfg)
-        if cfg.median_filter:
-            disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
-        return disp.to(torch.float32)
+def guide_lab(left: torch.Tensor, cfg: StereoConfig):
+    """The weighted median's guide, the left view in Lab, or None where
+    the median is plain or off."""
+    if cfg.median_filter and cfg.median_mode == "weighted":
+        return preprocess.rgb_to_lab(left)
+    return None
+
+
+def disparity(planes: dict, cfg: StereoConfig, guide) -> torch.Tensor:
+    """The float32 (H, W) map from one pair's WTA planes: ``disp_pre``,
+    then the 3x3 median, weighted by ``guide`` (``guide_lab``)."""
+    disp = disp_pre(planes, cfg)
+    return postprocess.median_filter(disp, cfg, guide) if cfg.median_filter else disp
 
 
 def tile_disparity(
@@ -217,17 +197,14 @@ def tile_disparity(
     its rows by global-row-clamped index, so rows at the image's true top
     and bottom reproduce the unbanded edge clamp: banded == unbanded bit
     for bit hinges on it."""
-    if _resolve_backend(cfg, left_ext.device) == "cuda":
-        found, disp_pre = _kernel_wta(left_ext, right_ext, cfg), _disp_pre_from_wta
-    else:
-        found, disp_pre = aggregated_volume(left_ext, right_ext, cfg), disp_pre_from_volume
+    planes = _planes(left_ext, right_ext, cfg, _resolve_backend(cfg, left_ext.device))
     with span("pipeline.postprocess"):
-        disp = disp_pre(found, cfg)
+        disp = disp_pre(planes, cfg)
         if not cfg.median_filter:
             return disp[halo : halo + rows]
         g = torch.arange(start - 1, start + rows + 1, device=disp.device).clamp(0, true_h - 1)
         local = (g - (start - halo)).clamp(0, disp.shape[0] - 1)  # global rows +-1
-        guide = _guide_lab(left_ext.index_select(0, local), cfg)
+        guide = guide_lab(left_ext.index_select(0, local), cfg)
         return postprocess.median_filter(disp.index_select(0, local), cfg, guide)[1 : 1 + rows]
 
 
@@ -267,13 +244,11 @@ def match_pair(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> to
     materializes the volume and ignores ``y_chunks``, as the reference's
     does."""
     backend = _resolve_backend(cfg, left.device)
-    if backend == "cuda":
-        outs = _kernel_wta(left, right, cfg)
-        return _postprocess_from_wta(outs, cfg, left)
-    if cfg.y_chunks > 1:
+    if backend != "cuda" and cfg.y_chunks > 1:
         return match_pair_chunked(left, right, cfg)
-    vol = aggregated_volume(left, right, cfg)
-    return _postprocess_from_volume(vol, cfg, left)
+    planes = _planes(left, right, cfg, backend)
+    with span("pipeline.postprocess"):
+        return disparity(planes, cfg, guide_lab(left, cfg))
 
 
 def match_pair_with_confidence(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig):
@@ -290,30 +265,24 @@ def match_pair_with_confidence(left: torch.Tensor, right: torch.Tensor, cfg: Ste
       - ``lr_valid``: the LR-consistency mask (all True when ``lr_check`` is
         off).
 
-    On the kernel path the operands are the kernel's planes; the eager
-    path refuses ``y_chunks > 1`` rather than build the whole volume a
-    chunked config exists to avoid."""
-    if _resolve_backend(cfg, left.device) == "cuda":
-        outs = _kernel_wta(left, right, cfg)
-        disp = _postprocess_from_wta(outs, cfg, left)
-        bestc, second, disp_i, rbest = outs["bestc"], outs["ubest"], outs["bestd"], outs["rbestd"]
-    else:
-        if cfg.y_chunks > 1:
-            raise ValueError(
-                "match_pair_with_confidence does not support y_chunks > 1 "
-                "on the eager path; use y_chunks=1 (or a kernel-backed config)"
-            )
-        vol = aggregated_volume(left, right, cfg)
-        disp = _postprocess_from_volume(vol, cfg, left)
-        disp_i = wta.wta(vol)
-        bestc = torch.gather(vol, -1, disp_i.to(torch.int64)[..., None])[..., 0]
-        second = wta.second_best_excl_neighbors(vol, disp_i)
-        rbest = wta.wta(postprocess.right_volume(vol)) if cfg.lr_check else None
+    All three come from one pair's WTA planes, the kernel's or the eager
+    volume's; the eager path refuses ``y_chunks > 1`` rather than build the
+    whole volume a chunked config exists to avoid."""
+    backend = _resolve_backend(cfg, left.device)
+    if backend != "cuda" and cfg.y_chunks > 1:
+        raise ValueError(
+            "match_pair_with_confidence does not support y_chunks > 1 "
+            "on the eager path; use y_chunks=1 (or a kernel-backed config)"
+        )
+    planes = _planes(left, right, cfg, backend, ubest=True)
+    with span("pipeline.postprocess"):
+        disp = disparity(planes, cfg, guide_lab(left, cfg))
+    bestc, second, disp_i = planes["bestc"], planes["ubest"], planes["bestd"]
     pos = bestc > 0.0
     margin = torch.clamp((second / torch.where(pos, bestc, 1.0) - 1.0) * 100.0, 0.0, 1e6)
     uniq_pct = torch.where(pos, margin, torch.full_like(margin, 1e6))
     if cfg.lr_check:
-        lr_valid = postprocess.lr_check(disp_i, rbest, cfg)
+        lr_valid = postprocess.lr_check(disp_i, planes["rbestd"], cfg)
     else:
         lr_valid = torch.ones(disp_i.shape, dtype=torch.bool, device=disp_i.device)
     return disp, uniq_pct, lr_valid

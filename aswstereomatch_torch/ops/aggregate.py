@@ -36,7 +36,7 @@ from ..utils.convert import axial_weights_np, spatial_weights_np
 from ..utils.profiling import span
 from . import cost as cost_ops
 from . import preprocess
-from .cuda import sgm_kernel
+from .cuda import cost_kernel, sgm_kernel, stacks_kernel
 
 
 def _patches_2d(arr: torch.Tensor, radius: int, x_valid: bool = False) -> torch.Tensor:
@@ -226,12 +226,10 @@ def aggregate_box(vol_ext: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
 def cost_volume_from_stacks(
     l_stack_ext: torch.Tensor, r_stack_ext: torch.Tensor, cfg: StereoConfig
 ) -> torch.Tensor:
-    """x-extended raw cost volume (H, W + 2r, D) from pre-extended stacks."""
+    """x-extended raw cost volume (H, W + 2r, D) from pre-extended stacks:
+    the cost kernel's plain version, on any device."""
     planes = cost_ops.planes_from_stacks(l_stack_ext, r_stack_ext, cfg.window_radius)
-    return torch.stack(
-        [cost_ops.cost_plane(planes, d, cfg) for d in range(cfg.max_disparity)],
-        dim=-1,
-    )
+    return cost_kernel.reference(planes, cfg)
 
 
 def aggregate_asw_from_stacks(
@@ -293,18 +291,10 @@ def aggregate_asw(
     d_indices=None,
 ) -> torch.Tensor:
     """ASW-aggregated cost volume for a full pair (at ``d_indices`` only,
-    when given): edge-pads the channel stacks to the virtual padded planes
-    and defers to ``aggregate_asw_from_stacks``."""
-    r = cfg.window_radius
-    D = cfg.max_disparity
-    ls = preprocess.channel_stack(left)
-    rs = preprocess.channel_stack(right)
-    return aggregate_asw_from_stacks(
-        preprocess.pad_edge(ls, 2, r, r),
-        preprocess.pad_edge(rs, 2, r + D - 1, r),
-        cfg,
-        d_indices,
-    )
+    when given): the edge-extended channel stacks (the stack kernel's plain
+    version, on any device), then ``aggregate_asw_from_stacks``."""
+    ls_ext, rs_ext = stacks_kernel.reference(left, right, cfg.window_radius, cfg.max_disparity)
+    return aggregate_asw_from_stacks(ls_ext, rs_ext, cfg, d_indices)
 
 
 def aggregate_sgm(vol: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:

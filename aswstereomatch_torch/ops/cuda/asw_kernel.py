@@ -34,7 +34,7 @@ from ...config import StereoConfig
 from .. import aggregate, wta
 from ...utils.convert import spatial_weights_np
 from . import build
-from .common import PLANES, device_table, dispatch, f32, stacks, wta_planes
+from .common import PLANES, device_table, dispatch, f32, stacks
 
 # Kernel launches since the last reset (chip_smoke.py reads this to show
 # that the main path went through the kernel).
@@ -147,7 +147,7 @@ def reference_from_stacks(ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: Stere
     W, D = vol.shape[1], vol.shape[2]
     n_valid, (lo, hi) = _shard_inputs(n_valid_cols, d_window, W, D)
     if n_valid == W and (lo, hi) == (0, D) and not want_strip:
-        return wta_planes(vol)
+        return wta.planes(vol)
     return window_planes(vol, n_valid, lo, hi, want_strip)
 
 

@@ -25,10 +25,10 @@ from typing import NamedTuple
 import torch
 
 from ...config import StereoConfig
-from .. import aggregate
+from .. import aggregate, wta
 from ...utils.convert import axial_weights_np
 from . import build
-from .common import PLANES, device_table, dispatch, f32, stacks, wta_planes
+from .common import PLANES, device_table, dispatch, f32, stacks
 
 # Kernel launches since the last reset (chip_smoke.py reads this to show
 # that the main path went through the kernel).
@@ -172,12 +172,12 @@ def _check(cfg: StereoConfig) -> None:
 
 def reference_from_stacks(ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig) -> dict:
     """Plain PyTorch version over pre-extended channel stacks, on any
-    device: the materialized separable volume and ``wta_planes``."""
+    device: the materialized separable volume and ``wta.planes``."""
     _check(cfg)
     storage = torch.bfloat16 if cfg.volume_dtype == "bfloat16" else None
     vol = aggregate.aggregate_asw_separable_from_stacks(
         ls_ext, rs_ext, cfg, storage_dtype=storage)
-    return wta_planes(vol)
+    return wta.planes(vol)
 
 
 def wta_outputs_reference(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> dict:

@@ -1,10 +1,9 @@
 """What the kernel wrappers (``asw_kernel``, ``asw_sep_kernel``,
 ``asw_dlanes_kernel``, ``asw_sym_dlanes_kernel``) share.
 
-The channel stacks every kernel takes, the seven output planes their plain
-versions derive from a materialized volume, the CPU/CUDA dispatch, the
-float32 rounding of scalar constants and the constant tables kept on the
-device.
+The channel stacks every kernel takes, the order of their output planes,
+the CPU/CUDA dispatch, the float32 rounding of scalar constants and the
+constant tables kept on the device.
 """
 
 from __future__ import annotations
@@ -16,7 +15,6 @@ import torch
 
 from ...config import StereoConfig
 from ...utils.profiling import span
-from .. import postprocess, wta
 from . import stacks_kernel
 
 # The kernels' outputs, in the order the bound ops return them.
@@ -33,15 +31,6 @@ def stacks(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig):
         if left.device.type == "cpu":
             return stacks_kernel.reference(left, right, r, D)
         return stacks_kernel.channel_stacks(left, right, r, D)
-
-
-def wta_planes(vol: torch.Tensor) -> dict:
-    """The kernels' output planes from a materialized (H, W, D) aggregated
-    volume: the WTA triple, the right view by volume reuse, and ubest."""
-    out = wta.wta_with_triple(vol)
-    out["rbestd"] = wta.wta(postprocess.right_volume(vol))
-    out["ubest"] = wta.second_best_excl_neighbors(vol, out["bestd"])
-    return out
 
 
 def dispatch(ls_ext: torch.Tensor, rs_ext: torch.Tensor, cfg: StereoConfig,

@@ -11,9 +11,12 @@ from __future__ import annotations
 
 import torch
 
+from . import postprocess
+
 
 def _take(vol: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.gather(vol, -1, idx.to(torch.int64)[..., None])[..., 0]
+    """``vol[..., idx]`` for an int64 index plane."""
+    return torch.gather(vol, -1, idx[..., None])[..., 0]
 
 
 def wta(vol: torch.Tensor) -> torch.Tensor:
@@ -24,25 +27,31 @@ def wta(vol: torch.Tensor) -> torch.Tensor:
 def wta_with_triple(vol: torch.Tensor) -> dict:
     """Argmin plus the (C[d*-1], C[d*], C[d*+1]) parabola triple; cm/cp at
     the d-range edges are clamped reads (masked later by the subpixel
-    guard)."""
+    guard).  The winner is cast to int64 once for the three gathers."""
     D = vol.shape[-1]
     d = wta(vol)
+    i = d.to(torch.int64)
     return {
         "bestd": d,
-        "bestc": _take(vol, d),
-        "cm": _take(vol, torch.clamp(d - 1, 0, D - 1)),
-        "cp": _take(vol, torch.clamp(d + 1, 0, D - 1)),
+        "bestc": _take(vol, i),
+        "cm": _take(vol, torch.clamp(i - 1, 0, D - 1)),
+        "cp": _take(vol, torch.clamp(i + 1, 0, D - 1)),
     }
 
 
-def subpixel(vol: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
-    """Parabola refinement around the integer winner.  vol: (H, W, D)."""
-    D = vol.shape[-1]
-    d = disp.to(torch.int64)
-    c0 = _take(vol, d)
-    cm = _take(vol, torch.clamp(d - 1, 0, D - 1))
-    cp = _take(vol, torch.clamp(d + 1, 0, D - 1))
-    return subpixel_from_triple(disp, c0, cm, cp, D)
+def planes(vol: torch.Tensor, *, rbestd: bool = True, ubest: bool = True) -> dict:
+    """The WTA planes of an (H, W, D) aggregated volume, the form the
+    kernels return and the post-process reads: the argmin and its
+    (cm, bestc, cp) triple always; ``rbestd``, the right view's argmin by
+    volume reuse, and ``ubest``, the second best outside the winner's
+    +-1, when asked for.  The kernels' plain versions ask for all six, the
+    eager route for what its config reads."""
+    out = wta_with_triple(vol)
+    if rbestd:
+        out["rbestd"] = wta(postprocess.right_volume(vol))
+    if ubest:
+        out["ubest"] = second_best_excl_neighbors(vol, out["bestd"])
+    return out
 
 
 def subpixel_from_triple(

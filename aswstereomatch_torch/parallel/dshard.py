@@ -27,7 +27,7 @@ import torch
 
 from ..config import StereoConfig
 from ..models import pipeline
-from ..ops import aggregate, postprocess, preprocess
+from ..ops import aggregate, preprocess
 from ..ops.cuda import asw_kernel
 from . import collectives
 from . import mesh as mesh_lib
@@ -182,12 +182,9 @@ def match_pair_dsharded(
     # ordered merge and the post-processing run replicated there.
     def combine(gathered):
         bc, bd, bcm, bcp, _, rd = _merge(gathered)
-        outs = {"bestc": bc, "bestd": bd, "cm": bcm, "cp": bcp, "rbestd": rd}
-        disp = pipeline._disp_pre_from_wta(outs, cfg)
-        if cfg.median_filter:
-            disp = postprocess.median_filter(
-                disp, cfg, pipeline._guide_lab(to_device(left, disp.device), cfg))
-        return disp.to(torch.float32)
+        planes = {"bestc": bc, "bestd": bd, "cm": bcm, "cp": bcp, "rbestd": rd}
+        guide = pipeline.guide_lab(to_device(left, bd.device), cfg) if cfg.median_filter else None
+        return pipeline.disparity(planes, cfg, guide)
 
     disp = collectives.replicated(group, parts, combine)
     shards = [Shard((slice(0, h), slice(0, w)), disp[k]) for k in group.local]

@@ -38,7 +38,7 @@ import torch
 
 from ..config import StereoConfig
 from ..models import pipeline
-from ..ops import aggregate, postprocess, preprocess
+from ..ops import aggregate, preprocess
 from ..ops.cuda import asw_kernel
 from . import collectives
 from . import mesh as mesh_lib
@@ -396,11 +396,8 @@ def match_pair_tiled_x(
 
     def post(gathered):
         full = [torch.cat(f, dim=-1)[..., :w] for f in zip(*gathered)]
-        disp = pipeline._disp_pre_from_wta(dict(zip(names, full)), cfg)
-        if cfg.median_filter:
-            guide = torch.movedim(full[-1], 0, -1) if weighted else None
-            disp = postprocess.median_filter(disp, cfg, guide)
-        return disp
+        guide = torch.movedim(full[-1], 0, -1) if weighted else None
+        return pipeline.disparity(dict(zip(names, full)), cfg, guide)
 
     disp = collectives.replicated(group, parts, post)
     shards = []

@@ -35,7 +35,7 @@ import torch
 
 from ..config import StereoConfig
 from ..models import pipeline
-from ..ops import postprocess
+from ..ops import aggregate, postprocess
 from ..parallel import dshard
 from ..utils import synthetic
 from . import common
@@ -160,7 +160,7 @@ def run_dwindow_trial(seed: int, device) -> dict:
         return {**row, "status": "FAIL", "error": traceback.format_exc(),
                 "line": f"CRASH {row['config']}: {type(e).__name__}: {e}"}
     got = _launches_since(before)
-    vol_t = pipeline.aggregated_volume(l, r, cfg.replace(backend="eager"))
+    vol_t = aggregate.aggregated_volume(l, r, cfg)
     vol = vol_t.cpu().numpy()
     volr = postprocess.right_volume(vol_t).cpu().numpy()
     d0 = k * ds

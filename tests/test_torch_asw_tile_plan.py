@@ -7,15 +7,15 @@ tiles, window-column runs and stack rows cover every column, disparity and
 tap exactly once).  A numpy model of the kernel's schedule over d-chunks
 (the online WTA carried across chunks, the right view folded once per
 (tile, chunk) with the packed first-occurrence minimum) must equal the
-plain ``wta_planes`` bit for bit on tie-heavy volumes.
+plain ``wta.planes`` bit for bit on tie-heavy volumes.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from aswstereomatch_torch.ops import wta
 from aswstereomatch_torch.ops.cuda import asw_kernel
-from aswstereomatch_torch.ops.cuda.common import wta_planes
 
 MODES = (asw_kernel.SYMMETRIC, asw_kernel.LEFT_ONLY, asw_kernel.BOX)
 GEOMETRIES = [(375, 1242), (375, 450), (45, 150), (1, 1)]
@@ -162,7 +162,7 @@ def test_chunk_schedule_model_equals_wta_planes(D, tx, dc, levels):
     H, W = 3, 2 * tx + 5
     vol = rng.integers(0, levels, size=(H, W, D)).astype(np.float32)
     got = _schedule_model(vol, tx, dc)
-    ref = {k: v.numpy() for k, v in wta_planes(torch.from_numpy(vol)).items()}
+    ref = {k: v.numpy() for k, v in wta.planes(torch.from_numpy(vol)).items()}
     for k in ("bestd", "rbestd", "bestc", "ubest"):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     inner = (ref["bestd"] > 0) & (ref["bestd"] < D - 1)

@@ -33,7 +33,7 @@ from aswstereomatch_tpu.config import StereoConfig as RefConfig
 from aswstereomatch_tpu.models import pipeline as ref_pipeline
 
 from aswstereomatch_torch.models import pipeline
-from aswstereomatch_torch.ops import postprocess
+from aswstereomatch_torch.ops import aggregate, postprocess, wta
 from aswstereomatch_torch.utils import convert, synthetic
 
 
@@ -120,7 +120,7 @@ def test_confidence_matches_reference_jnp(pair, agg, lr):
     assert lrv.dtype == torch.bool and disp.shape == uniq.shape == lrv.shape == (40, 72)
     d_ref, u_ref, lr_ref = _ref_confidence(pair["left"], pair["right"], ref_cfg)
     assert_agree(disp.numpy(), d_ref)
-    vol_t = pipeline.aggregated_volume(l, r, cfg)
+    vol_t = aggregate.aggregated_volume(l, r, cfg)
     vol_ref = np.array(J(ref_pipeline.aggregated_volume, cfg=ref_cfg)(
         jnp.asarray(pair["left"]), jnp.asarray(pair["right"])))
     agree = lr_inputs_agree(vol_t, vol_ref)
@@ -171,9 +171,29 @@ def test_kernel_branch_matches_reference_pallas(kw, monkeypatch):
     assert_agree(disp.numpy(), d_ref, bar=0.99, gross=0.005)
     assert float(np.mean(lrv.numpy() == lr_ref)) > 0.99
     same = (_ref_bestd(p["left"], p["right"], ref_cfg.replace(backend="jnp"))
-            == pipeline.aggregated_volume(T(p["left"]), T(p["right"]),
+            == aggregate.aggregated_volume(T(p["left"]), T(p["right"]),
                                           port(ref_cfg)).argmin(-1).numpy())
     assert_margins_close(uniq.numpy(), u_ref, same)
+
+
+@pytest.mark.parametrize("lr", [True, False], ids=["lr", "nolr"])
+@pytest.mark.parametrize("agg", [dict(), dict(aggregation="sgm", sgm_paths=8)],
+                         ids=["asw", "sgm"])
+def test_eager_confidence_is_one_set_of_planes(pair, agg, lr):
+    """On the eager path the map is match_pair's, and the margin and the
+    mask are those of one set of planes, the volume's six, bit for bit."""
+    cfg = port(_cfg(lr_check=lr, **agg))
+    l, r = T(pair["left"]), T(pair["right"])
+    disp, uniq, lrv = pipeline.match_pair_with_confidence(l, r, cfg)
+    assert torch.equal(disp, pipeline.match_pair(l, r, cfg))
+    p = wta.planes(aggregate.aggregated_volume(l, r, cfg))
+    pos = p["bestc"] > 0.0
+    margin = torch.clamp((p["ubest"] / torch.where(pos, p["bestc"], 1.0) - 1.0) * 100.0,
+                         0.0, 1e6)
+    assert torch.equal(uniq, torch.where(pos, margin, torch.full_like(margin, 1e6)))
+    want = (postprocess.lr_check(p["bestd"], p["rbestd"], cfg) if lr
+            else torch.ones_like(lrv))
+    assert torch.equal(lrv, want)
 
 
 def test_confidence_surface_reproduces_gate(pair):

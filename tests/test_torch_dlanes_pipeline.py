@@ -65,7 +65,8 @@ def test_match_pair_matches_pallas_pipeline(path):
     assert d_t.dtype == np.float32 and d_t.shape == (24, 40)
     # the kernel route's post-processing, fed by the wrapper's plain version
     # on the CPU, is the eager route's map
-    d_wta = pipeline._postprocess_from_wta(kernel.wta_outputs(l, r, cfg), cfg, l).numpy()
+    d_wta = pipeline.disparity(kernel.wta_outputs(l, r, cfg), cfg,
+                               pipeline.guide_lab(l, cfg)).numpy()
     np.testing.assert_array_equal(d_wta, d_t)
     d_pal = np.asarray(jax.jit(functools.partial(
         ref_pipeline.match_pair, cfg=ref_cfg.replace(backend="pallas")))(

@@ -21,6 +21,7 @@ from aswstereomatch_tpu.utils import synthetic
 
 import aswstereomatch_torch as asm
 from aswstereomatch_torch.models import pipeline
+from aswstereomatch_torch.ops import aggregate, wta
 from aswstereomatch_torch.ops.cuda import asw_kernel
 from aswstereomatch_torch.utils import convert
 
@@ -107,12 +108,41 @@ def test_kernel_route_postprocess_matches_pallas_pipeline(ref_cfg):
     l, r = T(pair["left"]), T(pair["right"])
     cfg = port(ref_cfg)
     outs = asw_kernel.wta_outputs_reference(l, r, cfg)
-    d_wta = pipeline._postprocess_from_wta(outs, cfg, l).numpy()
+    d_wta = pipeline.disparity(outs, cfg, pipeline.guide_lab(l, cfg)).numpy()
     d_eager = pipeline.match_pair(l, r, cfg).numpy()
     np.testing.assert_array_equal(d_wta, d_eager)
     d_pal = np.asarray(J(ref_pipeline.match_pair, cfg=ref_cfg.replace(backend="pallas"))(
         jnp.asarray(pair["left"]), jnp.asarray(pair["right"])))
     assert_agree(d_wta, d_pal, bar=0.99, gross=0.005)
+
+
+@pytest.mark.parametrize("subpixel", [True, False], ids=["subpix", "int"])
+@pytest.mark.parametrize("uniqueness_ratio", [0.0, 15.0], ids=["u0", "u15"])
+@pytest.mark.parametrize("lr_check", [True, False], ids=["lr", "nolr"])
+@pytest.mark.parametrize("aggregation", ["asw", "box", "sgm", "none"])
+def test_eager_planes_equal_the_kernels_plain_six(aggregation, lr_check, uniqueness_ratio,
+                                                  subpixel):
+    """The eager route's planes for a config are, plane for plane and bit
+    for bit, the full six the kernels' plain versions build (asw_kernel's
+    over the stacks for asw and box, ``wta.planes`` of the volume for the
+    aggregations no kernel serves); ``rbestd`` is there iff the LR check
+    reads it and ``ubest`` iff the uniqueness gate does."""
+    pair = synthetic.make_pair(height=16, width=32, max_disparity=8, seed=5)
+    l, r = T(pair["left"]), T(pair["right"])
+    cfg = port(CFG_TAD.replace(max_disparity=8, window_radius=2, aggregation=aggregation,
+                               lr_check=lr_check, uniqueness_ratio=uniqueness_ratio,
+                               subpixel=subpixel))
+    got = pipeline._planes(l, r, cfg, "eager")
+    if aggregation in ("asw", "box"):
+        six = asw_kernel.wta_outputs_reference(l, r, cfg)
+    else:
+        six = wta.planes(aggregate.aggregated_volume(l, r, cfg))
+    want = {"bestd", "bestc", "cm", "cp"}
+    want |= {"rbestd"} if lr_check else set()
+    want |= {"ubest"} if uniqueness_ratio > 0 else set()
+    assert set(got) == want and set(six) == set(asw_kernel.PLANES)
+    for k in want:
+        assert got[k].dtype == six[k].dtype and torch.equal(got[k], six[k]), k
 
 
 def test_resolve_backend():

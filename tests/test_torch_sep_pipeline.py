@@ -79,7 +79,7 @@ def test_kernel_route_postprocess_equals_eager(small_pair):
     cfg = port(CFG_SEP)
     l, r = T(small_pair["left"]), T(small_pair["right"])
     outs = asw_sep_kernel.wta_outputs(l, r, cfg)
-    d_wta = pipeline._postprocess_from_wta(outs, cfg, l).numpy()
+    d_wta = pipeline.disparity(outs, cfg, pipeline.guide_lab(l, cfg)).numpy()
     np.testing.assert_array_equal(d_wta, pipeline.match_pair(l, r, cfg).numpy())
 
 

@@ -106,7 +106,7 @@ def test_plain_sgm_equals_reference_bit_for_bit(hw, D, paths):
 def test_sgm_volume_matches_oracle(pair, paths):
     """tests/test_sgm.py:46-56's bars: atol 1e-3, argmin agreement > 0.999."""
     ref_cfg = _ref_cfg(sgm_paths=paths)
-    vol_t = pipeline.aggregated_volume(T(pair["left"]), T(pair["right"]), port(ref_cfg)).numpy()
+    vol_t = aggregate.aggregated_volume(T(pair["left"]), T(pair["right"]), port(ref_cfg)).numpy()
     vol_o = oracle.aggregate_sgm(oracle.cost_volume(pair["left"], pair["right"], ref_cfg),
                                  ref_cfg)
     np.testing.assert_allclose(vol_t, vol_o, atol=1e-3)
@@ -373,7 +373,7 @@ def test_sgm_zero_penalties_is_raw_cost(pair):
     scan step."""
     cfg = port(_ref_cfg(sgm_p1=0.0, sgm_p2=0.0))
     l, r = T(pair["left"]), T(pair["right"])
-    vol = pipeline.aggregated_volume(l, r, cfg).numpy()
+    vol = aggregate.aggregated_volume(l, r, cfg).numpy()
     raw = cost.cost_volume(l, r, cfg).numpy()
     np.testing.assert_allclose(vol, 4.0 * raw, rtol=1e-5, atol=1e-3)
     np.testing.assert_array_equal(vol.argmin(-1), raw.argmin(-1))

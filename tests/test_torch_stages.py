@@ -195,7 +195,10 @@ def test_wta_subpixel_match_oracle(small_pair):
     assert d_t.dtype == torch.int32
     np.testing.assert_array_equal(d_t.numpy(), d_o)
     s_o = oracle.subpixel(v, d_o)
-    np.testing.assert_allclose(wta.subpixel(T(v), d_t).numpy(), s_o, rtol=1e-5, atol=1e-4)
+    trip = wta.wta_with_triple(T(v))
+    s_t = wta.subpixel_from_triple(trip["bestd"], trip["bestc"], trip["cm"], trip["cp"],
+                                   v.shape[-1])
+    np.testing.assert_allclose(s_t.numpy(), s_o, rtol=1e-5, atol=1e-4)
 
 
 def test_wta_triple_second_best_and_gate_match_jnp(small_pair):
