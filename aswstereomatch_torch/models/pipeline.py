@@ -10,9 +10,9 @@ Backends:
              kernels.  It stores the volume in float32 whatever
              ``volume_dtype`` says (and warns when that says bfloat16).
   - "cuda":  a hand-written CUDA kernel (ops/cuda) for cost + aggregation +
-             WTA, the plain post-processing on top.  ``kernel_for`` picks
-             it from the config alone, as the reference's ``_kernel_wta``
-             picks its Pallas kernel: ``asw_sep_kernel`` for
+             WTA.  ``kernel_for`` picks it from the config alone, as the
+             reference's ``_kernel_wta`` picks its Pallas kernel:
+             ``asw_sep_kernel`` for
              ``asw_separable``; ``asw_sym_dlanes_kernel`` for symmetric ASW
              pinned to ``kernel_layout="dlanes"``; ``asw_dlanes_kernel``
              for left-only ASW, box at D > 64 and either pinned to
@@ -26,7 +26,8 @@ Both backends end the aggregation stage at the same WTA planes (the
 kernel's outputs, or ``wta.planes`` of the eager volume), and one
 post-process turns planes into a map: ``disparity``, which is ``disp_pre``
 (row-local) then the median, and which the sharded layouts in
-``parallel/`` call too.
+``parallel/`` call too.  On CUDA planes it is one launch of the disparity
+kernel (ops/cuda/disparity_kernel), on CPU planes that kernel's plain ops.
 
 SGM (``aggregation="sgm"``) runs on the eager backend: its aggregation
 stage is the hand-written scan kernel (ops/cuda/sgm_kernel) on a CUDA
@@ -44,7 +45,8 @@ import torch
 
 from ..config import StereoConfig, get_preset
 from ..ops import aggregate, postprocess, preprocess, wta
-from ..ops.cuda import asw_dlanes_kernel, asw_kernel, asw_sep_kernel, asw_sym_dlanes_kernel
+from ..ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel, asw_sym_dlanes_kernel,
+                        disparity_kernel)
 from ..utils.profiling import span
 
 
@@ -140,28 +142,20 @@ def _planes(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig, backend:
         return wta.planes(vol, rbestd=cfg.lr_check, ubest=ubest or cfg.uniqueness_ratio > 0)
 
 
+def _planes_to_map(planes: dict, cfg: StereoConfig, median: bool) -> torch.Tensor:
+    """Subpixel + LR + uniqueness + fill from one pair's WTA planes, then,
+    where ``median``, the plain 3x3 median: the plain ops for CPU planes,
+    one launch of the disparity kernel for any other (which raises on
+    planes it cannot take)."""
+    if planes["bestd"].device.type == "cpu":
+        return disparity_kernel.reference(planes, cfg, median)
+    return disparity_kernel.disparity_map(planes, cfg, median)
+
+
 def disp_pre(planes: dict, cfg: StereoConfig) -> torch.Tensor:
     """Subpixel + LR + uniqueness + fill from one pair's WTA planes
     (everything row-local; no median)."""
-    disp_i = planes["bestd"]
-    if cfg.subpixel:
-        disp = wta.subpixel_from_triple(
-            disp_i, planes["bestc"], planes["cm"], planes["cp"], cfg.max_disparity
-        )
-    else:
-        disp = disp_i.to(torch.float32)
-    valid = None
-    if cfg.lr_check:
-        valid = postprocess.lr_check(disp_i, planes["rbestd"], cfg)
-    if cfg.uniqueness_ratio > 0:
-        uv = wta.uniqueness_valid(planes["bestc"], planes["ubest"], cfg.uniqueness_ratio)
-        valid = uv if valid is None else valid & uv
-    if valid is not None:
-        if cfg.fill_holes:
-            disp = postprocess.fill_holes(disp, valid)
-        else:
-            disp = torch.where(valid, disp, torch.full_like(disp, -1.0))
-    return disp.to(torch.float32)
+    return _planes_to_map(planes, cfg, median=False)
 
 
 def guide_lab(left: torch.Tensor, cfg: StereoConfig):
@@ -174,9 +168,12 @@ def guide_lab(left: torch.Tensor, cfg: StereoConfig):
 
 def disparity(planes: dict, cfg: StereoConfig, guide) -> torch.Tensor:
     """The float32 (H, W) map from one pair's WTA planes: ``disp_pre``,
-    then the 3x3 median, weighted by ``guide`` (``guide_lab``)."""
-    disp = disp_pre(planes, cfg)
-    return postprocess.median_filter(disp, cfg, guide) if cfg.median_filter else disp
+    then the 3x3 median, weighted by ``guide`` (``guide_lab``).  The plain
+    median runs in the same launch as ``disp_pre`` on the card; the
+    weighted one follows it as plain ops."""
+    if cfg.median_filter and cfg.median_mode == "weighted":
+        return postprocess.median_filter(disp_pre(planes, cfg), cfg, guide)
+    return _planes_to_map(planes, cfg, median=cfg.median_filter)
 
 
 def tile_disparity(

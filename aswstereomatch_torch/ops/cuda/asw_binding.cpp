@@ -4,9 +4,10 @@
 // ASW or box, asw_dlanes_kernel.cu), asw_sym_dlanes_wta (symmetric ASW,
 // asw_sym_dlanes_kernel.cu), sgm_aggregate (semi-global aggregation,
 // sgm_kernel.cu), channel_stacks (both views' channel stacks,
-// stacks_kernel.cu) and cost_volume (the raw cost volume, cost_kernel.cu).
-// Each checks its inputs, allocates the outputs and launches on the
-// current CUDA stream (sgm_aggregate writes into the scratch its wrapper
+// stacks_kernel.cu), cost_volume (the raw cost volume, cost_kernel.cu) and
+// disparity_map (the map from the WTA planes, disparity_kernel.cu).
+// Each checks its inputs (disparity_map leaves that to its wrapper),
+// allocates the outputs and launches on the current CUDA stream (sgm_aggregate writes into the scratch its wrapper
 // allocated); a launch error raises.  They have only a CUDA implementation:
 // CPU tensors take the plain PyTorch versions in the ops/cuda/*.py wrappers
 // before they get here.
@@ -21,6 +22,7 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include <optional>
 #include <tuple>
 #include <utility>
 #include <vector>
@@ -65,6 +67,11 @@ extern "C" int cost_volume_launch(const float* lc, const float* rc, const float*
                                   const float* gr, int H, int Wo, int C, int D, int cost_ad,
                                   float inv_c, float alpha, float one_minus_alpha,
                                   float tau_color, float tau_grad, float* out, void* stream);
+extern "C" int disparity_map_launch(const int* bestd, const float* bestc, const float* cm,
+                                    const float* cp, const int* rbestd, const float* ubest,
+                                    int H, int W, int D, int subpixel, int lr_check,
+                                    float lr_tol, int uniqueness, float uscale, int fill,
+                                    int median, float* out, void* stream);
 extern "C" const char* asw_error_string(int err);
 
 namespace {
@@ -334,6 +341,28 @@ at::Tensor cost_volume(const at::Tensor& lc, const at::Tensor& rc, const at::Ten
   return out;
 }
 
+// The WTA planes (H, W): bestd and rbestd int32, the rest float32; rbestd
+// where lr_check is on, ubest where uniqueness is on -> the map (H, W).
+// Its wrapper (disparity_kernel.py::check) checks the planes: dtypes, one
+// shape, contiguity, one CUDA device, the planes the flags read.
+at::Tensor disparity_map(const at::Tensor& bestd, const at::Tensor& bestc, const at::Tensor& cm,
+                         const at::Tensor& cp, const std::optional<at::Tensor>& rbestd,
+                         const std::optional<at::Tensor>& ubest, int64_t D, int64_t subpixel,
+                         int64_t lr_check, double lr_tol, int64_t uniqueness, double uscale,
+                         int64_t fill, int64_t median) {
+  const int64_t H = bestd.size(0), W = bestd.size(1);
+  c10::cuda::CUDAGuard guard(bestd.device());
+  at::Tensor out = at::empty({H, W}, bestc.options());
+  const int err = disparity_map_launch(
+      bestd.data_ptr<int>(), bestc.data_ptr<float>(), cm.data_ptr<float>(), cp.data_ptr<float>(),
+      lr_check ? rbestd->data_ptr<int>() : nullptr,
+      uniqueness ? ubest->data_ptr<float>() : nullptr, (int)H, (int)W, (int)D, (int)subpixel,
+      (int)lr_check, (float)lr_tol, (int)uniqueness, (float)uscale, (int)fill, (int)median,
+      out.data_ptr<float>(), stream_of(bestd));
+  TORCH_CHECK(err == 0, "disparity_map launch failed: ", asw_error_string(err));
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(asw_torch, m) {
@@ -366,6 +395,10 @@ TORCH_LIBRARY(asw_torch, m) {
       "cost_volume(Tensor lc, Tensor rc, Tensor gl, Tensor gr, int D, int cost_ad, "
       "float inv_c, float alpha, float one_minus_alpha, float tau_color, float tau_grad) "
       "-> Tensor");
+  m.def(
+      "disparity_map(Tensor bestd, Tensor bestc, Tensor cm, Tensor cp, Tensor? rbestd, "
+      "Tensor? ubest, int D, int subpixel, int lr_check, float lr_tol, int uniqueness, "
+      "float uscale, int fill, int median) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
@@ -376,6 +409,7 @@ TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
   m.impl("sgm_aggregate", &sgm_aggregate);
   m.impl("channel_stacks", &channel_stacks);
   m.impl("cost_volume", &cost_volume);
+  m.impl("disparity_map", &disparity_map);
 }
 
 TORCH_LIBRARY_IMPL(asw_torch, CPU, m) {

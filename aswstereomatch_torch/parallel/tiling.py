@@ -395,7 +395,7 @@ def match_pair_tiled_x(
              for k in group.local}
 
     def post(gathered):
-        full = [torch.cat(f, dim=-1)[..., :w] for f in zip(*gathered)]
+        full = [torch.cat(f, dim=-1)[..., :w].contiguous() for f in zip(*gathered)]
         guide = torch.movedim(full[-1], 0, -1) if weighted else None
         return pipeline.disparity(dict(zip(names, full)), cfg, guide)
 

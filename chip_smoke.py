@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py
 
-Seven kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
+Eight kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
 the separable-ASW kernel (ops/cuda/asw_sep_kernel.cu); K3, the d-lanes
 kernel for left-only ASW and box (ops/cuda/asw_dlanes_kernel.cu); K4, the
 symmetric d-lanes kernel (ops/cuda/asw_sym_dlanes_kernel.cu); SGM, the
 semi-global scan kernel (ops/cuda/sgm_kernel.cu); the stack kernel
 (ops/cuda/stacks_kernel.cu), which builds both views' channel stacks for
-K1-K4 in one launch a pair; and the cost kernel (ops/cuda/cost_kernel.cu),
-which builds the eager path's raw (H, W, D) cost volume in one launch.
+K1-K4 in one launch a pair; the cost kernel (ops/cuda/cost_kernel.cu),
+which builds the eager path's raw (H, W, D) cost volume in one launch; and
+the disparity kernel (ops/cuda/disparity_kernel.cu), which turns every
+route's WTA planes into the map in one launch.
 Phases, one line each per kernel or path; any failure exits non-zero:
 
   1. device  — refuses to run without CUDA; prints the card's name and
@@ -74,7 +76,8 @@ Phases, one line each per kernel or path; any failure exits non-zero:
                15 but for at most 0.01% of pixels.  y_chunks: eager
                kitti_tiled at 1242x375 in 4 bands equals one band bit for
                bit (peak allocations printed), K1 with y_chunks=3 equals
-               y_chunks=1;
+               y_chunks=1.  On every path the disparity kernel launches
+               once per map (once per band in row bands);
   6. times   — median ms per pair (CUDA events) of each kernel's wrapper
                and of its plain version, with the channel stacks built
                inside (ms, plain_ms) and over the
@@ -100,7 +103,10 @@ Phases, one line each per kernel or path; any failure exits non-zero:
                the cost kernel against the plain loop over d (bit for bit,
                then timed the same way, and the plain loop by CUDA
                events) at 1242x375 D=128 and 450x375 D=64, beside its byte
-               bound (cost_bound);
+               bound (cost_bound); the disparity kernel against the plain
+               post-process over K2's planes at 1242x375 D=128 and K1's at
+               450x375 D=64 (bit for bit, then timed the same way), beside
+               its byte bound (disparity_bound);
   7. entry   — the user's entry points at 1242x375 D=128, launch counts
                read around each: whether the native codec built (the
                compiler's words if not); ``python -m
@@ -192,8 +198,8 @@ Phases, one line each per kernel or path; any failure exits non-zero:
 
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
-k1_bound / k2_bound / box_bound / sgm_bound / stacks_bound / cost_bound); the
-last line is
+k1_bound / k2_bound / box_bound / sgm_bound / stacks_bound / cost_bound /
+disparity_bound); the last line is
 {"ok": true, "device": {...}}.  Imports torch, numpy and the port only (no
 jax).
 """
@@ -487,6 +493,15 @@ def cost_bound(H: int, Wo: int, C: int, D: int) -> tuple:
     bytes at these rates."""
     nbytes = 4 * (H * (2 * Wo + D - 1) * (C + 1) + H * Wo * D)
     return _bound(0.0, 0.0, nbytes)
+
+
+def disparity_bound(H: int, W: int, cfg) -> tuple:
+    """The map from the WTA planes at its least traffic: the planes the
+    config reads (bestd, bestc, cm, cp; rbestd with the LR check, ubest
+    with the uniqueness gate) read once and the float32 map written once.
+    Its ~30 FP32 operations a pixel take less time than its bytes."""
+    planes = 4 + int(cfg.lr_check) + int(cfg.uniqueness_ratio > 0)
+    return _bound(0.0, 0.0, 4 * H * W * (planes + 1))
 
 
 def sgm_schedule_bytes(H: int, W: int, cfg) -> int:
@@ -1782,7 +1797,8 @@ def main() -> int:
     from aswstereomatch_torch.ops import cost as cost_ops
     from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
                                                asw_sym_dlanes_kernel, build, common,
-                                               cost_kernel, sgm_kernel, stacks_kernel)
+                                               cost_kernel, disparity_kernel, sgm_kernel,
+                                               stacks_kernel)
     from aswstereomatch_torch.utils import evaluate, plan_sweep, synthetic
 
     # ---- 1. device ------------------------------------------------------
@@ -1961,19 +1977,23 @@ def main() -> int:
 
     def reset():
         torch.cuda.synchronize()
-        for m in (*kernels.values(), stacks_kernel, cost_kernel):
+        for m in (*kernels.values(), stacks_kernel, cost_kernel, disparity_kernel):
             m.launches = 0
 
-    def launched(label, want, stack_builds=True) -> int:
+    def launched(label, want, stack_builds=True, maps=None) -> int:
         """Fails unless the launches since the last reset are ``want`` (name
         -> count) and none of any other kernel, and, with ``stack_builds``,
         the stack kernel's one per launch of K1-K4 (every kernel-route call
-        built its stacks in it); returns their sum."""
+        built its stacks in it), and, where ``maps`` is given, the disparity
+        kernel's one per map; returns their sum."""
         torch.cuda.synchronize()
         got = {k: m.launches for k, m in kernels.items()}
         full = {k: want.get(k, 0) for k in kernels}
         if got != full:
             fail(f"serve: {label} launched {got}, expected {full}")
+        if maps is not None and disparity_kernel.launches != maps:
+            fail(f"serve: {label} launched the disparity kernel {disparity_kernel.launches} "
+                 f"times, expected {maps} (one per map)")
         builds = sum(want.get(k, 0) for k in ("K1", "K2", "K3", "K4"))
         if stack_builds and stacks_kernel.launches != builds:
             fail(f"serve: {label} launched the stack kernel {stacks_kernel.launches} times, "
@@ -2004,7 +2024,8 @@ def main() -> int:
     reset()
     disps = serve(matcher, reqs, 2)
     dk = serve(kitti, [pk], 0)[0]
-    main_launches = launched("K1's path", {"K1": 6})
+    main_launches = launched("K1's path", {"K1": 6}, maps=6)
+    map_launches = disparity_kernel.launches
     stack_launches = stacks_kernel.launches
     bads = [check_map("450x375", d, p, D_m, 0.05) for p, d in zip(reqs, disps)]
     bad_k = check_map("kitti_tiled", dk, pk, 128)
@@ -2017,7 +2038,8 @@ def main() -> int:
     reset()
     ds = serve(sep, reqs_k, 2)
     dlo = serve(seplo, [pk], 0)[0]
-    sep_launches = launched("K2's path", {"K2": 6})
+    sep_launches = launched("K2's path", {"K2": 6}, maps=6)
+    map_launches += disparity_kernel.launches
     stack_launches += stacks_kernel.launches
     bads_s = [check_map("kitti_sep", d, p, 128, 0.05) for p, d in zip(reqs_k, ds)]
     bad_lo = check_map("kitti_seplo", dlo, pk, 128, 0.05)
@@ -2033,10 +2055,12 @@ def main() -> int:
     # K3's paths: left-only ASW requests and a batch of two; box, one pair
     reset()
     dls = serve(lo, reqs_k, 2)
-    dl_launches = launched("K3's left-only path", {"K3": 5})
+    dl_launches = launched("K3's left-only path", {"K3": 5}, maps=5)
+    map_launches += disparity_kernel.launches
     reset()
     dbox = serve(box, [pk], 0)[0]
-    dl_launches += launched("K3's box path", {"K3": 1})
+    dl_launches += launched("K3's box path", {"K3": 1}, maps=1)
+    map_launches += disparity_kernel.launches
     bads_l = [check_map("left-only", d, p, 128, 0.05) for p, d in zip(reqs_k, dls)]
     bad_box = check_map("box", dbox, pk, 128)
     print(f"serve K3: 3 requests left-only ASW 1242x375 D=128 bad_2 "
@@ -2047,7 +2071,8 @@ def main() -> int:
     # K4's path: kitti_tiled on kernel_layout="dlanes", one pair, against K1's map
     reset()
     dsdl = serve(sdl, [pk], 0)[0]
-    sdl_launches = launched("K4's path", {"K4": 1})
+    sdl_launches = launched("K4's path", {"K4": 1}, maps=1)
+    map_launches += disparity_kernel.launches
     bad_sdl = check_map("symmetric dlanes", dsdl, pk, 128)
     sdl_agree, sdl_gross = _argmin_agreement(dsdl, dk)  # test_pallas_dlanes.py:232-234
     if not (sdl_agree > 0.99 and sdl_gross < 0.005):
@@ -2059,7 +2084,7 @@ def main() -> int:
         fail("serve: kernel_layout='dlanes' with D=256 did not raise on the card")
     except ValueError as e:
         refused = str(e)
-    launched("the refused D=256 config", {})
+    launched("the refused D=256 config", {}, maps=0)
     print(f"serve K4: kitti_tiled on dlanes 1242x375 D=128 bad_2 {bad_sdl:.5f} density 1.0, "
           f"vs K1's map: within 0.51 on {sdl_agree:.6f}, |dd|>2 on {sdl_gross:.6f}; "
           f"K4 launches {sdl_launches}, other kernels 0; dlanes D=256 raised: {refused}",
@@ -2076,24 +2101,28 @@ def main() -> int:
     reset()
     dsg = serve(sgm_m, reqs_k, 2)
     dsg8 = serve(sgm8, [pk], 0)[0]
-    sgm_launches = launched("SGM's path", {"SGM": 6})
+    sgm_launches = launched("SGM's path", {"SGM": 6}, maps=6)
+    map_launches += disparity_kernel.launches
     cost_launches = cost_kernel.launches
     if cost_launches != 6:
         fail(f"serve: SGM's path launched the cost kernel {cost_launches} times, expected 6 "
              f"(one volume a pair)")
     bads_g = [check_map("kitti_sgm", d, p, 128, 0.05) for p, d in zip(reqs_k, dsg)]
     bad_g8 = check_map("kitti_sgm 8 paths", dsg8, pk, 128, 0.05)
-    # the same pipeline with the plain cost loop and the plain SGM on the
-    # card: the same map, bit for bit
+    # the same pipeline with the plain cost loop, the plain SGM and the plain
+    # post-process on the card: the same map, bit for bit
     kernel_aggregate, kernel_cost = sgm_kernel.aggregate, cost_kernel.cost_volume
+    kernel_map = disparity_kernel.disparity_map
     sgm_kernel.aggregate = sgm_kernel.aggregate_reference
     cost_kernel.cost_volume = cost_kernel.reference
+    disparity_kernel.disparity_map = disparity_kernel.reference
     reset()
     try:
         plain_maps = [m(u8(pk["left"]), u8(pk["right"])).cpu().numpy() for m in (sgm_m, sgm8)]
     finally:
         sgm_kernel.aggregate, cost_kernel.cost_volume = kernel_aggregate, kernel_cost
-    launched("the plain SGM pipeline", {})
+        disparity_kernel.disparity_map = kernel_map
+    launched("the plain SGM pipeline", {}, maps=0)
     if cost_kernel.launches:
         fail(f"serve: the plain SGM pipeline launched the cost kernel {cost_kernel.launches} "
              f"times")
@@ -2101,10 +2130,13 @@ def main() -> int:
         if not np.array_equal(got, want):
             fail(f"serve: kitti_sgm {paths} paths differs from the plain pipeline on "
                  f"{int((got != want).sum())} pixels")
+    print(f"serve maps: the disparity kernel launched once per map on every path, "
+          f"{map_launches} times", flush=True)
     print(f"serve SGM: 3 requests kitti_sgm 1242x375 D=128 bad_2 "
           f"{[round(b, 6) for b in bads_g]}, batch of 2 == singles, 8 paths bad_2 "
           f"{bad_g8:.6f}, density 1.0; maps equal the plain pipeline's (plain cost loop, "
-          f"plain SGM) bit for bit (4 and 8 paths); SGM launches {sgm_launches} (5 + 1), "
+          f"plain SGM, plain post-process) bit for bit (4 and 8 paths); SGM launches "
+          f"{sgm_launches} (5 + 1), "
           f"cost kernel {cost_launches}, other kernels 0",
           flush=True)
 
@@ -2124,7 +2156,7 @@ def main() -> int:
             gated = pipeline.match_pair(l, r, cfg.replace(uniqueness_ratio=ratio,
                                                           fill_holes=False, median_filter=False))
             worst = max(worst, int(((lrv & (uniq >= ratio)) != (gated >= 0)).sum()))
-        launched(f"confidence {label}", {key: 4})
+        launched(f"confidence {label}", {key: 4}, maps=4)
         bar = int(1e-4 * disp.numel())
         if not (same and uniq.dtype == torch.float32 and lrv.dtype == torch.bool
                 and bool(((uniq >= 0) & (uniq <= 1e6)).all()) and worst <= bar):
@@ -2148,7 +2180,7 @@ def main() -> int:
         torch.cuda.synchronize()
         walls[n] = time.perf_counter() - t0
         peaks[n] = (torch.cuda.max_memory_allocated() - held) / 2**20
-    launched("eager kitti_tiled", {})
+    launched("eager kitti_tiled", {}, maps=5)  # one band, then four
     if not torch.equal(maps[1], maps[4]):
         fail(f"y_chunks: eager kitti_tiled in 4 bands differs from one on "
              f"{int((maps[1] != maps[4]).sum())} pixels")
@@ -2164,7 +2196,7 @@ def main() -> int:
         fail(f"y_chunks: the fixed-order window sum moved with its rows on {fixed_moved} rows")
     reset()
     dk3 = Matcher(kitti_cfg.replace(y_chunks=3))(u8(pk["left"]), u8(pk["right"])).cpu().numpy()
-    launched("kitti_tiled with y_chunks=3", {"K1": 1})
+    launched("kitti_tiled with y_chunks=3", {"K1": 1}, maps=1)
     if not np.array_equal(dk3, dk):
         fail("y_chunks: kitti_tiled on K1 with y_chunks=3 differs from y_chunks=1")
     print(f"y_chunks: eager kitti_tiled 1242x375 D=128, 4 bands == 1 band bit for bit "
@@ -2299,6 +2331,37 @@ def main() -> int:
               f"{bound_by}, {100 * bound_ms / t['ms']:.1f}%); plain loop {t['plain_ms']:.3f} ms",
               flush=True)
 
+    # The disparity kernel against the plain post-process: the map from K2's
+    # planes of the 1242x375 pair and from K1's of the 450x375 one, bit for
+    # bit, then timed (the kernel's device time from the profiler, both by
+    # CUDA events around a call) beside the byte bound
+    for geo, p, c, module in (("disparity 1242x375 D=128", pk, cfg_sep, asw_sep_kernel),
+                              ("disparity 450x375 D=64", reqs[0], cfg_m, asw_kernel)):
+        l = torch.from_numpy(p["left"]).to(dev)
+        r = torch.from_numpy(p["right"]).to(dev)
+        planes = module.wta_outputs(l, r, c)
+        got = disparity_kernel.disparity_map(planes, c, c.median_filter)
+        want = disparity_kernel.reference(planes, c, c.median_filter)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"{geo}: the disparity kernel differs from the plain post-process on "
+                 f"{int((got.view(torch.int32) != want.view(torch.int32)).sum())} pixels")
+        H, W = p["gt"].shape
+        bound_ms, bound_by = disparity_bound(H, W, c)
+        t = times[geo] = {  # ms: the kernel's device time; call_ms: CUDA events around a call
+            "ms": _device_ms(lambda: disparity_kernel.disparity_map(planes, c, c.median_filter),
+                             "disparity_map_kernel", 50),
+            "call_ms": _median_ms(
+                lambda: disparity_kernel.disparity_map(planes, c, c.median_filter), 50),
+            "plain_ms": _median_ms(
+                lambda: disparity_kernel.reference(planes, c, c.median_filter), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print(f"times {geo} on {card}: disparity kernel {t['ms']:.4f} ms on the card "
+              f"({t['call_ms']:.4f} ms by CUDA events around a call), bit for bit with the "
+              f"plain post-process (bound {bound_ms:.4f} ms by {bound_by}, "
+              f"{100 * bound_ms / t['ms']:.1f}%); plain post-process {t['plain_ms']:.3f} ms "
+              f"by CUDA events around a call", flush=True)
+
     # SGM: the kernel over the raw cost volume, 4 and 8 paths; the raw cost
     # volume (cost_volume, through the cost kernel) and kitti_sgm end to end
     for paths in (4, 8):
@@ -2386,6 +2449,10 @@ def main() -> int:
         row("cost_volume", "aswstereomatch_torch/ops/cuda/cost_kernel.cu",
             "none: XLA fuses aswstereomatch_tpu/ops/cost.py::cost_volume", cost_launches,
             0.0, "cost 1242x375 D=128", middlebury=times["cost 450x375 D=64"]),
+        row("disparity_map", "aswstereomatch_torch/ops/cuda/disparity_kernel.cu",
+            "none: XLA fuses aswstereomatch_tpu/models/pipeline.py::_disp_pre_from_wta "
+            "and the median", map_launches, 0.0, "disparity 1242x375 D=128",
+            middlebury=times["disparity 450x375 D=64"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
