@@ -134,12 +134,15 @@ def _planes(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig, backend:
     """One pair's WTA planes, where the aggregation stage ends on either
     route: the kernel's outputs, or ``wta.planes`` of the eager volume
     (``rbestd`` where the LR check reads it, ``ubest`` where the
-    uniqueness gate or the caller does), both inside ``pipeline.aggregate``."""
+    uniqueness gate or the caller does), both inside ``pipeline.aggregate``;
+    the volume's WTA in its own span, ``pipeline.wta``."""
     if backend == "cuda":
         return _kernel_wta(left, right, cfg)
     with span("pipeline.aggregate"):
         vol = aggregate.aggregated_volume(left, right, cfg)
-        return wta.planes(vol, rbestd=cfg.lr_check, ubest=ubest or cfg.uniqueness_ratio > 0)
+        with span("pipeline.wta"):
+            return wta.planes(vol, rbestd=cfg.lr_check,
+                              ubest=ubest or cfg.uniqueness_ratio > 0)
 
 
 def _planes_to_map(planes: dict, cfg: StereoConfig, median: bool) -> torch.Tensor:

@@ -44,8 +44,10 @@ from . import build
 from .common import f32
 
 # Kernel launches since the last reset (chip_smoke.py reads this to show
-# that the main path went through the kernel).  One per aggregated volume.
+# that the main path went through the kernel).  One per aggregated volume;
+# ``long_launches`` counts those of them whose phases ran the long-D path.
 launches = 0
+long_launches = 0
 
 # The directions in the pinned summation order, as (dy, dx): the step from
 # a pixel to the next one on its scanline (the predecessor is p - (dy, dx)).
@@ -284,11 +286,13 @@ def _run(vol: torch.Tensor, cfg: StereoConfig, p: Plan) -> torch.Tensor:
     """Launch plan ``p`` as it is, unchecked: ``aggregate`` after its checks,
     and the timings of one phase (or part of one) alone, whose sums read
     whatever S and the scratch hold (utils/plan_sweep.py, chip_smoke.py)."""
-    global launches
+    global launches, long_launches
     build.load()
     H, W, D = vol.shape
     scratch = torch.empty(p.scratch_floats(H, W, D), dtype=torch.float32, device=vol.device)
     out = torch.ops.asw_torch.sgm_aggregate(vol, scratch, f32(cfg.sgm_p1), f32(cfg.sgm_p2),
                                             p.ints())
     launches += 1
+    if not p.vpl:
+        long_launches += 1
     return out

@@ -41,7 +41,9 @@ inside it ``pipeline.input`` (the input's copy and widening),
 ``pipeline.preprocess`` (the kernels' channel stacks, inside
 ``pipeline.aggregate``) and ``pipeline.postprocess``.  SGM's aggregation
 opens two more inside ``pipeline.aggregate``: ``pipeline.cost`` (the raw
-cost volume) and then ``pipeline.sgm`` (the scan).  ``spans()`` returns
+cost volume) and then ``pipeline.sgm`` (the scan).  The eager route, SGM's
+included, ends ``pipeline.aggregate`` with ``pipeline.wta``: the WTA planes
+of its volume (``ops/wta.py::planes``).  ``spans()`` returns
 the log, which keeps the last ``SPAN_LOG_RECORDS`` records;
 ``clear_spans()`` empties it.
 """

@@ -66,9 +66,14 @@ Phases, one line each per kernel or path; any failure exits non-zero:
                launch of K1-K4 (here and in phase 7).  A "dlanes" config no d-lanes
                kernel supports (D = 256) must raise.  kitti_sgm three
                requests and a batch of two, and one 8-path pair (SGM 6,
-               the cost kernel 6: one volume a pair), bad-2.0 < 5%, each
-               map equal bit for bit to the same pipeline with the plain
-               cost loop and the plain SGM.  The confidence surface at
+               none on its long-D path, the cost kernel 6: one volume a
+               pair), bad-2.0 < 5%, each map equal bit for bit to the same
+               pipeline with the plain cost loop, the plain SGM and the
+               plain post-process; then middeval3_h_sgm's path
+               (MIDDEVAL3_H_OVERRIDES: 8 paths, D = 256, uniqueness 10)
+               on one 1440x994 pair, SGM 1 on the long-D path
+               (sgm_kernel.long_launches 1), the cost kernel 1 and the
+               disparity kernel 1, held the same way.  The confidence surface at
                middlebury_asw_full (K1), kitti_sep (K2) and kitti_sgm
                (SGM): disp equals match_pair's bit for bit, and
                lr_valid & (uniq_pct >= r) reproduces the
@@ -95,7 +100,10 @@ Phases, one line each per kernel or path; any failure exits non-zero:
                alone, its rate over the 3 P - 1 volumes it moves
                (sgm_schedule_bytes) and its share of their floor, the
                kernel call's peak allocation, that volume's build, and
-               kitti_sgm end to end with its peak allocation; the stack
+               kitti_sgm end to end with its peak allocation; the same
+               for the long-D path over middeval3_h_sgm's 1440x994 D=256
+               volume, 8 paths, bit for bit with its plain version first
+               and beside sgm_bound's 0.875 ms (middeval3_times); the stack
                kernel against the plain stack build (both views, bit for
                bit, then timed: the kernel's device time by the profiler,
                both by CUDA events around a call) at 1242x375 D=128 and
@@ -551,6 +559,119 @@ def check_sgm(name, shape, paths, p1, p2, device) -> int:
             f"{desc}: differs from the plain version on {int((got != ref).sum())} of "
             f"{ref.numel()} values, max |diff| {float((got - ref).abs().max())}")
     return len(plans)
+
+
+# The middeval3_h_sgm deployment (benchmark/configs/middeval3_h_sgm.json):
+# kitti_sgm with these overrides on a 1440x994 pair.  D = 256 is past the
+# register path's 128, so its SGM scan runs on the long-D path.
+MIDDEVAL3_H_OVERRIDES = {"sgm_paths": 8, "max_disparity": 256, "uniqueness_ratio": 10.0}
+MIDDEVAL3_H_SHAPE = (994, 1440)
+
+
+def middeval3_serve(reset, launched, check_map) -> dict:
+    """Phase 5's middeval3_h_sgm path: one 1440x994 uint8 pair through
+    StereoMatcher, launch counts reset just before it: the raw volume in one
+    cost kernel launch, its scan in one SGM kernel call on the long-D path,
+    the map in one disparity kernel launch with the uniqueness gate on, and
+    no other kernel.  The same pipeline with the plain cost loop, the plain
+    SGM and the plain post-process on the card gives the map bit for bit.
+    Returns the matcher, its uint8 pair and the map's bad-2.0."""
+    import aswstereomatch_torch
+    from aswstereomatch_torch.models import pipeline
+    from aswstereomatch_torch.ops.cuda import cost_kernel, disparity_kernel, sgm_kernel
+    from aswstereomatch_torch.utils import synthetic
+
+    H, W = MIDDEVAL3_H_SHAPE
+    m = aswstereomatch_torch.StereoMatcher.from_preset("kitti_sgm", **MIDDEVAL3_H_OVERRIDES)
+    D = m.cfg.max_disparity
+    if (pipeline._resolve_backend(m.cfg, m.device) != "eager"
+            or pipeline.kernel_for(m.cfg) is not None
+            or sgm_kernel.plan(H, W, D, m.cfg.sgm_paths).vpl):
+        fail(f"serve: {m.cfg} does not resolve to the eager path and the SGM kernel's "
+             f"long-D path")
+    p = synthetic.make_pair(height=H, width=W, max_disparity=D, seed=51)
+    lu, ru = p["left"].astype(np.uint8), p["right"].astype(np.uint8)
+    reset()
+    got = m(lu, ru).cpu().numpy()
+    launched("middeval3_h_sgm's path", {"SGM": 1}, maps=1)
+    if sgm_kernel.long_launches != 1 or cost_kernel.launches != 1:
+        fail(f"serve: middeval3_h_sgm's path ran {sgm_kernel.long_launches} long-D SGM "
+             f"volumes and {cost_kernel.launches} cost kernel launches, expected 1 and 1")
+    bad = check_map("middeval3_h_sgm", got, p, D, 0.05)
+    kernel_aggregate, kernel_cost = sgm_kernel.aggregate, cost_kernel.cost_volume
+    kernel_map = disparity_kernel.disparity_map
+    sgm_kernel.aggregate = sgm_kernel.aggregate_reference
+    cost_kernel.cost_volume = cost_kernel.reference
+    disparity_kernel.disparity_map = disparity_kernel.reference
+    reset()
+    try:
+        want = m(lu, ru).cpu().numpy()
+    finally:
+        sgm_kernel.aggregate, cost_kernel.cost_volume = kernel_aggregate, kernel_cost
+        disparity_kernel.disparity_map = kernel_map
+    launched("the plain middeval3_h_sgm pipeline", {}, maps=0)
+    if cost_kernel.launches or sgm_kernel.long_launches:
+        fail("serve: the plain middeval3_h_sgm pipeline launched the cost or the SGM kernel")
+    if not np.array_equal(got, want):
+        fail(f"serve: middeval3_h_sgm differs from the plain pipeline on "
+             f"{int((got != want).sum())} pixels")
+    return {"matcher": m, "left": lu, "right": ru, "bad_2": bad}
+
+
+def middeval3_times(card: str, dev, served: dict) -> dict:
+    """Phase 6's middeval3_h_sgm row: the SGM kernel on its long-D path over
+    the raw cost volume of phase 5's pair (1440x994, D = 256, 8 paths), bit
+    for bit with its plain version, then both timed by CUDA events around a
+    call, each phase alone, the kernel's rate over the volumes it moves and
+    its share of sgm_bound (0.875 ms); the raw volume's build, and the call
+    end to end with its peak allocation above what the script holds."""
+    import torch
+
+    from aswstereomatch_torch.ops import cost as cost_ops
+    from aswstereomatch_torch.ops.cuda import sgm_kernel
+    from aswstereomatch_torch.utils import plan_sweep
+
+    m, lu, ru = served["matcher"], served["left"], served["right"]
+    c = m.cfg
+    H, W = MIDDEVAL3_H_SHAPE
+    l = torch.from_numpy(lu).to(dev).float()
+    r = torch.from_numpy(ru).to(dev).float()
+    vol = cost_ops.cost_volume(l, r, c)
+    got, ref = sgm_kernel.aggregate(vol, c), sgm_kernel.aggregate_reference(vol, c)
+    if not (torch.isfinite(got).all() and torch.equal(got, ref)):
+        fail(f"times: SGM middeval3_h_sgm differs from its plain version on "
+             f"{int((got != ref).sum())} of {ref.numel()} values")
+    del got, ref
+    plan = sgm_kernel.plan(H, W, c.max_disparity, c.sgm_paths)
+    bound_ms, bound_by = sgm_bound(H, W, c)
+    t = {
+        "ms": _median_ms(lambda: sgm_kernel.aggregate(vol, c), 5),
+        "plain_ms": _median_ms(lambda: sgm_kernel.aggregate_reference(vol, c), 1),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "phase_ms": plan_sweep.sgm_phase_ms(vol, c, plan, 5),
+        "cost_volume_ms": _median_ms(lambda: cost_ops.cost_volume(l, r, c), 5),
+        "e2e_ms": _median_ms(lambda: m(lu, ru), 5),
+    }
+    schedule_bytes = sgm_schedule_bytes(H, W, c)
+    floor_ms = schedule_bytes / HBM_BYTES * 1e3
+    t["gb_per_s"] = schedule_bytes / (t["ms"] * 1e-3) / 1e9
+    del vol
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    m(lu, ru)
+    torch.cuda.synchronize()
+    t["peak_alloc_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+    print(f"times SGM middeval3_h_sgm {W}x{H} D={c.max_disparity} {c.sgm_paths} paths, long-D "
+          f"path, on {card}: kernel {t['ms']:.3f} ms, bit for bit with its plain version "
+          f"(bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / t['ms']:.2f}%; "
+          f"{3 * c.sgm_paths - 1} volumes {schedule_bytes} B at {t['gb_per_s']:.1f} GB/s, "
+          f"{100 * floor_ms / t['ms']:.1f}% of their {floor_ms:.3f} ms floor); phases alone "
+          + " / ".join(f"{x:.3f}" for x in t["phase_ms"])
+          + f" ms; plain {t['plain_ms']:.3f} ms; raw cost volume (the cost kernel) "
+          f"{t['cost_volume_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair; peak "
+          f"allocation of a call {t['peak_alloc_mib']:.3f} MiB", flush=True)
+    return t
 
 
 def fail(msg: str) -> None:
@@ -1979,6 +2100,7 @@ def main() -> int:
         torch.cuda.synchronize()
         for m in (*kernels.values(), stacks_kernel, cost_kernel, disparity_kernel):
             m.launches = 0
+        sgm_kernel.long_launches = 0
 
     def launched(label, want, stack_builds=True, maps=None) -> int:
         """Fails unless the launches since the last reset are ``want`` (name
@@ -2107,6 +2229,9 @@ def main() -> int:
     if cost_launches != 6:
         fail(f"serve: SGM's path launched the cost kernel {cost_launches} times, expected 6 "
              f"(one volume a pair)")
+    if sgm_kernel.long_launches:
+        fail(f"serve: SGM's path at D=128 ran {sgm_kernel.long_launches} volumes on the long-D "
+             f"path, expected 0 (the register path)")
     bads_g = [check_map("kitti_sgm", d, p, 128, 0.05) for p, d in zip(reqs_k, dsg)]
     bad_g8 = check_map("kitti_sgm 8 paths", dsg8, pk, 128, 0.05)
     # the same pipeline with the plain cost loop, the plain SGM and the plain
@@ -2130,15 +2255,26 @@ def main() -> int:
         if not np.array_equal(got, want):
             fail(f"serve: kitti_sgm {paths} paths differs from the plain pipeline on "
                  f"{int((got != want).sum())} pixels")
-    print(f"serve maps: the disparity kernel launched once per map on every path, "
-          f"{map_launches} times", flush=True)
     print(f"serve SGM: 3 requests kitti_sgm 1242x375 D=128 bad_2 "
           f"{[round(b, 6) for b in bads_g]}, batch of 2 == singles, 8 paths bad_2 "
           f"{bad_g8:.6f}, density 1.0; maps equal the plain pipeline's (plain cost loop, "
           f"plain SGM, plain post-process) bit for bit (4 and 8 paths); SGM launches "
-          f"{sgm_launches} (5 + 1), "
+          f"{sgm_launches} (5 + 1), none on the long-D path, "
           f"cost kernel {cost_launches}, other kernels 0",
           flush=True)
+
+    # middeval3_h_sgm's path: one 1440x994 D=256 8-path pair with the
+    # uniqueness gate; the scan on the SGM kernel's long-D path
+    mid = middeval3_serve(reset, launched, check_map)
+    sgm_launches += 1
+    cost_launches += 1
+    map_launches += 1
+    print(f"serve SGM: middeval3_h_sgm 1440x994 D=256 8 paths uniqueness 10 bad_2 "
+          f"{mid['bad_2']:.6f}, density 1.0; the map equals the plain pipeline's bit for bit; "
+          f"SGM 1 (on the long-D path), cost kernel 1, disparity kernel 1, other kernels 0",
+          flush=True)
+    print(f"serve maps: the disparity kernel launched once per map on every path, "
+          f"{map_launches} times", flush=True)
 
     # The confidence surface on each kind of path: its disp is match_pair's,
     # and lr_valid & (uniq_pct >= r) reproduces the uniqueness_ratio=r gate
@@ -2406,6 +2542,10 @@ def main() -> int:
               f"{t['cost_volume_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair; "
               f"peak allocation of a call {t['peak_alloc_mib']:.3f} MiB", flush=True)
 
+    # SGM's long-D path at middeval3_h_sgm's shape, bit for bit, then timed
+    times["SGM middeval3_h_sgm 8 paths"] = middeval3_times(card, dev, mid)
+    del mid
+
     # ---- 7. the entry points: serve, CLI, sweep -------------------------
     entry_points(card, dev, reset, launched)
 
@@ -2442,7 +2582,8 @@ def main() -> int:
             sdl_err, "K4 1242x375", middlebury=times["K4 450x375"]),
         row("sgm_aggregate", "aswstereomatch_torch/ops/cuda/sgm_kernel.cu",
             "aswstereomatch_tpu/ops/aggregate.py:335", sgm_launches, sgm_err,
-            "SGM kitti_sgm 4 paths", eight_paths=times["SGM kitti_sgm 8 paths"]),
+            "SGM kitti_sgm 4 paths", eight_paths=times["SGM kitti_sgm 8 paths"],
+            long_d=times["SGM middeval3_h_sgm 8 paths"]),
         row("channel_stacks", "aswstereomatch_torch/ops/cuda/stacks_kernel.cu",
             "none: XLA fuses aswstereomatch_tpu/ops/preprocess.py::channel_stack", stack_launches,
             0.0, "stacks 1242x375 D=128", middlebury=times["stacks 450x375 D=64"]),

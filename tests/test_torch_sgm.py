@@ -18,6 +18,7 @@ batch and the refusal of y_chunks.
 import dataclasses
 import functools
 import importlib.util
+import json
 from pathlib import Path
 
 import jax
@@ -228,6 +229,9 @@ def _take_line(phase, g):
 PLAN_DS = sorted({c[1][2] for c in chip_smoke.SGM_SMALL_CASES}
                  | {c.max_disparity for c in asm.PRESETS.values()}
                  | {sgm_kernel.REG_MAX_D, sgm_kernel.REG_MAX_D + 1, 6143})
+# The largest geometry a benchmark cell runs on the long-D path: MiddEval3
+# at half resolution, 994 x 1440, D = 256.
+MIDDEVAL3_H = chip_smoke.MIDDEVAL3_H_SHAPE
 
 
 @pytest.mark.parametrize("paths", [4, 8])
@@ -238,8 +242,11 @@ def test_plan_hands_out_each_scanline_once_and_fits(D, paths):
     memory the plan asks for; at most two scratch volumes, with their
     bytes; 3 P - 1 volumes moved, as chip_smoke.sgm_schedule_bytes counts."""
     cfg = asm.StereoConfig(aggregation="sgm", max_disparity=D, sgm_paths=paths)
-    for H, W in [(375, 1242), (3, 200), (1, 1), (40, 1), (50, 7)]:
+    shapes = [(375, 1242), (3, 200), (1, 1), (40, 1), (50, 7)]
+    for H, W in shapes + ([MIDDEVAL3_H] if D == 256 else []):
         p = sgm_kernel.plan(H, W, D, paths)
+        if (H, W, D) == (*MIDDEVAL3_H, 256):
+            assert p.vpl == 0 and not p.row_floats, "the long-D path, its rows in shared memory"
         assert len(p.phases) == paths // 2
         seen = []
         for phase in p.phases:
@@ -368,6 +375,22 @@ def test_sgm_pipeline_matches_jnp_and_oracle(pair, kw, paths):
         np.testing.assert_allclose(d_t, d_o, atol=1e-4)
 
 
+@pytest.mark.parametrize("D", [136, 130], ids=["d136", "d130_not_a_multiple_of_4"])
+def test_sgm_pipeline_past_the_register_path_matches_jnp(D):
+    """A disparity range the kernel runs on its long-D path (D > 128, or
+    not a multiple of 4), 8 paths, with the uniqueness gate and the LR
+    check, as the middeval3_h_sgm configuration runs it: against the
+    reference's jnp pipeline at assert_agree's bars."""
+    p = synthetic.make_pair(height=12, width=160, max_disparity=D, seed=5)
+    ref_cfg = _ref_cfg(max_disparity=D, sgm_paths=8, uniqueness_ratio=10.0)
+    assert sgm_kernel.plan(12, 160, D, 8).vpl == 0
+    d_t = pipeline.match_pair(T(p["left"]), T(p["right"]), port(ref_cfg)).numpy()
+    assert d_t.dtype == np.float32 and d_t.shape == p["gt"].shape
+    d_j = np.asarray(J(ref_pipeline.match_pair, cfg=ref_cfg.replace(backend="jnp"))(
+        jnp.asarray(p["left"]), jnp.asarray(p["right"])))
+    assert_agree(d_t, d_j)
+
+
 def test_sgm_zero_penalties_is_raw_cost(pair):
     """tests/test_sgm.py:70-78: P1 = P2 = 0 gives S = 4 C up to ~1 ulp per
     scan step."""
@@ -449,3 +472,20 @@ def test_sgm_bound_counts_bytes():
         ms, by = chip_smoke.sgm_bound(375, 1242, cfg.replace(sgm_paths=paths))
         assert by == "bytes" and ms == pytest.approx(2 * 4 * 375 * 1242 * 128 / 3.35e12 * 1e3)
     assert 0.142 < chip_smoke.sgm_bound(375, 1242, cfg)[0] < 0.143
+
+
+def test_chip_smoke_long_d_path_is_the_benchmarked_config():
+    """chip_smoke.py's middeval3_h_sgm path runs the benchmark's
+    configuration (benchmark/configs/middeval3_h_sgm.json): kitti_sgm with
+    its overrides at its geometry, whose scan plan is the long-D path, and
+    sgm_bound reads 0.875 ms there."""
+    path = Path(__file__).resolve().parents[1] / "benchmark" / "configs" / "middeval3_h_sgm.json"
+    conf = json.loads(path.read_text())
+    assert conf["preset"] == "kitti_sgm"
+    assert chip_smoke.MIDDEVAL3_H_OVERRIDES == conf["overrides"]
+    assert chip_smoke.MIDDEVAL3_H_SHAPE == (conf["height"], conf["width"])
+    cfg = asm.get_preset("kitti_sgm").replace(**chip_smoke.MIDDEVAL3_H_OVERRIDES)
+    assert dataclasses.asdict(cfg) == conf["stereo_config"]
+    assert sgm_kernel.plan(*chip_smoke.MIDDEVAL3_H_SHAPE, cfg.max_disparity, cfg.sgm_paths).vpl == 0
+    ms, by = chip_smoke.sgm_bound(*chip_smoke.MIDDEVAL3_H_SHAPE, cfg)
+    assert by == "bytes" and 0.874 < ms < 0.876

@@ -41,6 +41,29 @@ def test_sgm_kernel_matches_plain_version(case):
     assert sgm_kernel.launches == before + n
 
 
+@pytest.mark.parametrize("shape", [(64, 256, 256), (64, 256, 128)], ids=["d256", "d128"])
+def test_long_launches_count_the_long_d_volumes(shape):
+    """A mid-size volume at D = 256, 8 paths, bit for bit with the plain
+    version on the long-D path, which ``long_launches`` counts once per
+    volume; a D = 128 volume takes the register path and leaves it."""
+    import numpy as np
+
+    from aswstereomatch_torch.config import StereoConfig
+    from aswstereomatch_torch.ops.cuda import sgm_kernel
+
+    H, W, D = shape
+    cfg = StereoConfig(aggregation="sgm", max_disparity=D, sgm_paths=8)
+    rng = np.random.default_rng(H + W + D)
+    vol = torch.from_numpy((rng.random(shape) * 40.0).astype(np.float32)).cuda()
+    ref = sgm_kernel.aggregate_reference(vol, cfg)
+    before, long_before = sgm_kernel.launches, sgm_kernel.long_launches
+    for _ in range(2):
+        assert torch.equal(sgm_kernel.aggregate(vol, cfg), ref)
+    long_d = D > sgm_kernel.REG_MAX_D
+    assert sgm_kernel.launches - before == 2
+    assert sgm_kernel.long_launches - long_before == (2 if long_d else 0)
+
+
 @pytest.mark.parametrize("paths", [4, 8])
 def test_sgm_pipeline_on_card_equals_plain_sgm_pipeline(paths, monkeypatch):
     """A kitti_sgm-style config through StereoMatcher: one SGM launch per

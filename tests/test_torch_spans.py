@@ -4,7 +4,8 @@ Without a profiler a span is one flag check: nothing recorded, no
 ``record_function`` entered, the same map.  Under a profiler every
 ``StereoMatcher`` request is one ``pipeline.call`` root whose stages carry
 its request id and nest as the pipeline does (SGM's cost build and scan
-inside the aggregation, one raw volume a pair), and every span's times lie
+inside the aggregation, one raw volume a pair, and the volume's WTA after
+them), and every span's times lie
 within the profiler's own event of the same name: the spans share the
 profiler's clock, which is the device trace's.
 """
@@ -54,10 +55,12 @@ def _sgm_matcher(paths):
 
 
 # The matchers the span tests run, by route; SGM adds its two stages inside
-# ``pipeline.aggregate``.
+# ``pipeline.aggregate``, and every route that builds a volume (all but the
+# kernel route) ends that span with the volume's WTA.
 MATCHERS = {"eager": _matcher, "kernel": _matcher,
             "sgm_4_paths": lambda: _sgm_matcher(4), "sgm_8_paths": lambda: _sgm_matcher(8)}
 SGM_STAGES = ["pipeline.cost", "pipeline.sgm"]
+WTA = "pipeline.wta"
 
 
 def _profiler():
@@ -93,7 +96,7 @@ def test_without_a_profiler_a_span_records_nothing(monkeypatch, pair, route):
     assert profiling.span(ROOT) is profiling.span("pipeline.input")  # one shared no-op
     with _profiler():
         traced = m(pair["left"], pair["right"])
-    want = {ROOT, "pipeline.input", "pipeline.aggregate", "pipeline.postprocess"}
+    want = {ROOT, "pipeline.input", "pipeline.aggregate", WTA, "pipeline.postprocess"}
     if route.startswith("sgm"):
         want.update(SGM_STAGES)
     assert set(entered) == want
@@ -115,12 +118,15 @@ def test_each_call_is_one_root_with_its_stages(monkeypatch, pair, route):
     assert all(r.parent is None and r.request is not None for r in roots)
     parents = {"pipeline.input": ROOT, "pipeline.aggregate": ROOT,
                "pipeline.postprocess": ROOT, "pipeline.preprocess": "pipeline.aggregate",
-               "pipeline.cost": "pipeline.aggregate", "pipeline.sgm": "pipeline.aggregate"}
+               "pipeline.cost": "pipeline.aggregate", "pipeline.sgm": "pipeline.aggregate",
+               WTA: "pipeline.aggregate"}
     for root in roots:
         mine = [r for r in records if r.request == root.request and r.name != ROOT]
         want = ["pipeline.input", "pipeline.aggregate", "pipeline.postprocess"]
         if route == "kernel":
             want.insert(2, "pipeline.preprocess")
+        else:
+            want.insert(2, WTA)
         if route.startswith("sgm"):
             want[2:2] = SGM_STAGES
         assert sorted(r.name for r in mine) == sorted(want)
@@ -226,7 +232,7 @@ def test_batch_and_bands_are_one_request_each(pair):
     assert None not in requests and len(requests) == 2
     for records in requests.values():
         names = collections.Counter(r.name for r in records)
-        assert names == {ROOT: 1, "pipeline.input": 1, "pipeline.aggregate": 2,
+        assert names == {ROOT: 1, "pipeline.input": 1, "pipeline.aggregate": 2, WTA: 2,
                          "pipeline.postprocess": 2}
 
 
