@@ -23,7 +23,8 @@ Backends:
              "eager" otherwise.
 
 Both backends end the aggregation stage at the same WTA planes (the
-kernel's outputs, or ``wta.planes`` of the eager volume), and one
+kernel's outputs, or the eager volume's, one launch of the WTA kernel
+(ops/cuda/wta_kernel) on the card and ``wta.planes`` on the CPU), and one
 post-process turns planes into a map: ``disparity``, which is ``disp_pre``
 (row-local) then the median, and which the sharded layouts in
 ``parallel/`` call too.  On CUDA planes it is one launch of the disparity
@@ -44,9 +45,9 @@ import numpy as np
 import torch
 
 from ..config import StereoConfig, get_preset
-from ..ops import aggregate, postprocess, preprocess, wta
+from ..ops import aggregate, postprocess, preprocess
 from ..ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel, asw_sym_dlanes_kernel,
-                        disparity_kernel)
+                        disparity_kernel, wta_kernel)
 from ..utils.profiling import span
 
 
@@ -132,17 +133,19 @@ def _kernel_wta(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig) -> d
 def _planes(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig, backend: str,
             ubest: bool = False) -> dict:
     """One pair's WTA planes, where the aggregation stage ends on either
-    route: the kernel's outputs, or ``wta.planes`` of the eager volume
-    (``rbestd`` where the LR check reads it, ``ubest`` where the
-    uniqueness gate or the caller does), both inside ``pipeline.aggregate``;
-    the volume's WTA in its own span, ``pipeline.wta``."""
+    route: the kernel's outputs, or the eager volume's planes
+    (``wta_kernel.planes``: one launch of the WTA kernel on the card, the
+    plain ``wta.planes`` on the CPU; ``rbestd`` where the LR check reads
+    it, ``ubest`` where the uniqueness gate or the caller does), both
+    inside ``pipeline.aggregate``; the volume's WTA in its own span,
+    ``pipeline.wta``."""
     if backend == "cuda":
         return _kernel_wta(left, right, cfg)
     with span("pipeline.aggregate"):
         vol = aggregate.aggregated_volume(left, right, cfg)
         with span("pipeline.wta"):
-            return wta.planes(vol, rbestd=cfg.lr_check,
-                              ubest=ubest or cfg.uniqueness_ratio > 0)
+            return wta_kernel.planes(vol, rbestd=cfg.lr_check,
+                                     ubest=ubest or cfg.uniqueness_ratio > 0)
 
 
 def _planes_to_map(planes: dict, cfg: StereoConfig, median: bool) -> torch.Tensor:

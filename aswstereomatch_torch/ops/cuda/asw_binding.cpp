@@ -4,8 +4,9 @@
 // ASW or box, asw_dlanes_kernel.cu), asw_sym_dlanes_wta (symmetric ASW,
 // asw_sym_dlanes_kernel.cu), sgm_aggregate (semi-global aggregation,
 // sgm_kernel.cu), channel_stacks (both views' channel stacks,
-// stacks_kernel.cu), cost_volume (the raw cost volume, cost_kernel.cu) and
-// disparity_map (the map from the WTA planes, disparity_kernel.cu).
+// stacks_kernel.cu), cost_volume (the raw cost volume, cost_kernel.cu),
+// disparity_map (the map from the WTA planes, disparity_kernel.cu) and
+// wta_planes (the WTA planes of an aggregated volume, wta_kernel.cu).
 // Each checks its inputs (disparity_map leaves that to its wrapper),
 // allocates the outputs and launches on the current CUDA stream (sgm_aggregate writes into the scratch its wrapper
 // allocated); a launch error raises.  They have only a CUDA implementation:
@@ -72,6 +73,8 @@ extern "C" int disparity_map_launch(const int* bestd, const float* bestc, const 
                                     int H, int W, int D, int subpixel, int lr_check,
                                     float lr_tol, int uniqueness, float uscale, int fill,
                                     int median, float* out, void* stream);
+extern "C" int wta_planes_launch(const float* S, int H, int W, int D, int* bestd, float* bestc,
+                                 float* cm, float* cp, int* rbestd, float* ubest, void* stream);
 extern "C" const char* asw_error_string(int err);
 
 namespace {
@@ -363,6 +366,29 @@ at::Tensor disparity_map(const at::Tensor& bestd, const at::Tensor& bestc, const
   return out;
 }
 
+// vol (H, W, D) -> [bestd, bestc, cm, cp] (H, W), then rbestd where asked
+// for and ubest where asked for; bestd and rbestd int32, the rest float32.
+std::vector<at::Tensor> wta_planes(const at::Tensor& vol, bool rbestd, bool ubest) {
+  check_input(vol, "vol", 3);
+  const int64_t H = vol.size(0), W = vol.size(1), D = vol.size(2);
+  TORCH_CHECK(H >= 1 && W >= 1 && D >= 1, "empty volume");
+  TORCH_CHECK(H < (int64_t)1 << 31 && W + D < (int64_t)1 << 30, "volume too large");
+  c10::cuda::CUDAGuard guard(vol.device());
+  const auto f32 = vol.options();
+  const auto i32 = vol.options().dtype(at::kInt);
+  std::vector<at::Tensor> out = {at::empty({H, W}, i32), at::empty({H, W}, f32),
+                                 at::empty({H, W}, f32), at::empty({H, W}, f32)};
+  if (rbestd) out.push_back(at::empty({H, W}, i32));
+  if (ubest) out.push_back(at::empty({H, W}, f32));
+  const int err = wta_planes_launch(
+      vol.data_ptr<float>(), (int)H, (int)W, (int)D, out[0].data_ptr<int>(),
+      out[1].data_ptr<float>(), out[2].data_ptr<float>(), out[3].data_ptr<float>(),
+      rbestd ? out[4].data_ptr<int>() : nullptr, ubest ? out.back().data_ptr<float>() : nullptr,
+      stream_of(vol));
+  TORCH_CHECK(err == 0, "wta_planes launch failed: ", asw_error_string(err));
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(asw_torch, m) {
@@ -399,6 +425,7 @@ TORCH_LIBRARY(asw_torch, m) {
       "disparity_map(Tensor bestd, Tensor bestc, Tensor cm, Tensor cp, Tensor? rbestd, "
       "Tensor? ubest, int D, int subpixel, int lr_check, float lr_tol, int uniqueness, "
       "float uscale, int fill, int median) -> Tensor");
+  m.def("wta_planes(Tensor vol, bool rbestd, bool ubest) -> Tensor[]");
 }
 
 TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
@@ -410,6 +437,7 @@ TORCH_LIBRARY_IMPL(asw_torch, CUDA, m) {
   m.impl("channel_stacks", &channel_stacks);
   m.impl("cost_volume", &cost_volume);
   m.impl("disparity_map", &disparity_map);
+  m.impl("wta_planes", &wta_planes);
 }
 
 TORCH_LIBRARY_IMPL(asw_torch, CPU, m) {

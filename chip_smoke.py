@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eight kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
+Nine kernels: K1, the fused exact-ASW kernel (ops/cuda/asw_kernel.cu); K2,
 the separable-ASW kernel (ops/cuda/asw_sep_kernel.cu); K3, the d-lanes
 kernel for left-only ASW and box (ops/cuda/asw_dlanes_kernel.cu); K4, the
 symmetric d-lanes kernel (ops/cuda/asw_sym_dlanes_kernel.cu); SGM, the
@@ -11,7 +11,9 @@ semi-global scan kernel (ops/cuda/sgm_kernel.cu); the stack kernel
 K1-K4 in one launch a pair; the cost kernel (ops/cuda/cost_kernel.cu),
 which builds the eager path's raw (H, W, D) cost volume in one launch; and
 the disparity kernel (ops/cuda/disparity_kernel.cu), which turns every
-route's WTA planes into the map in one launch.
+route's WTA planes into the map in one launch; and the WTA kernel
+(ops/cuda/wta_kernel.cu), which takes the eager volume's WTA planes in one
+launch.
 Phases, one line each per kernel or path; any failure exits non-zero:
 
   1. device  — refuses to run without CUDA; prints the card's name and
@@ -69,11 +71,12 @@ Phases, one line each per kernel or path; any failure exits non-zero:
                none on its long-D path, the cost kernel 6: one volume a
                pair), bad-2.0 < 5%, each map equal bit for bit to the same
                pipeline with the plain cost loop, the plain SGM and the
-               plain post-process; then middeval3_h_sgm's path
+               plain post-process and the plain WTA planes (the WTA
+               kernel 6: one per SGM launch); then middeval3_h_sgm's path
                (MIDDEVAL3_H_OVERRIDES: 8 paths, D = 256, uniqueness 10)
                on one 1440x994 pair, SGM 1 on the long-D path
-               (sgm_kernel.long_launches 1), the cost kernel 1 and the
-               disparity kernel 1, held the same way.  The confidence surface at
+               (sgm_kernel.long_launches 1), the cost kernel 1, the WTA
+               kernel 1 and the disparity kernel 1, held the same way.  The confidence surface at
                middlebury_asw_full (K1), kitti_sep (K2) and kitti_sgm
                (SGM): disp equals match_pair's bit for bit, and
                lr_valid & (uniq_pct >= r) reproduces the
@@ -114,7 +117,12 @@ Phases, one line each per kernel or path; any failure exits non-zero:
                bound (cost_bound); the disparity kernel against the plain
                post-process over K2's planes at 1242x375 D=128 and K1's at
                450x375 D=64 (bit for bit, then timed the same way), beside
-               its byte bound (disparity_bound);
+               its byte bound (disparity_bound); the WTA kernel against
+               the plain WTA planes over the SGM volume S of kitti_sgm
+               (1242x375 D=128, rbestd) and of middeval3_h_sgm (1440x994
+               D=256, rbestd and ubest), bit for bit, then timed the same
+               way beside its byte bound (wta_bound) and the plain
+               planes' time;
   7. entry   — the user's entry points at 1242x375 D=128, launch counts
                read around each: whether the native codec built (the
                compiler's words if not); ``python -m
@@ -207,7 +215,7 @@ Phases, one line each per kernel or path; any failure exits non-zero:
 Before the last line it prints one JSON object with a row per kernel (its
 bound_ms from this run's shapes and the function's least work, see
 k1_bound / k2_bound / box_bound / sgm_bound / stacks_bound / cost_bound /
-disparity_bound); the last line is
+disparity_bound / wta_bound); the last line is
 {"ok": true, "device": {...}}.  Imports torch, numpy and the port only (no
 jax).
 """
@@ -512,6 +520,52 @@ def disparity_bound(H: int, W: int, cfg) -> tuple:
     return _bound(0.0, 0.0, 4 * H * W * (planes + 1))
 
 
+def wta_bound(H: int, W: int, cfg) -> tuple:
+    """The WTA planes of an (H, W, D) volume at their least traffic: the
+    float32 volume read once and the planes the config asks for written
+    once (bestd, bestc, cm, cp; rbestd with the LR check, ubest with the
+    uniqueness gate).  Its few operations an element take less time than
+    its 4 bytes."""
+    planes = 4 + int(cfg.lr_check) + int(cfg.uniqueness_ratio > 0)
+    return _bound(0.0, 0.0, 4 * H * W * (cfg.max_disparity + planes))
+
+
+def wta_times(card: str, label: str, S, cfg) -> dict:
+    """Phase 6's WTA rows: the WTA kernel over the SGM volume S against the
+    plain WTA planes (the config's planes, bit for bit), then the kernel's
+    device time (profiler), both by CUDA events around a call, beside
+    wta_bound."""
+    import torch
+
+    from aswstereomatch_torch.ops.cuda import wta_kernel
+
+    H, W, D = S.shape
+    kw = {"rbestd": cfg.lr_check, "ubest": cfg.uniqueness_ratio > 0}
+    got, want = wta_kernel.wta_planes(S, **kw), wta_kernel.reference(S, **kw)
+    for k in want:
+        g, w = got[k], want[k]
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            fail(f"times {label}: the WTA kernel's {k} differs from the plain planes on "
+                 f"{int((g != w).sum())} pixels")
+    del got, want
+    bound_ms, bound_by = wta_bound(H, W, cfg)
+    t = {  # ms: the kernel's device time; call_ms: CUDA events around a call
+        "ms": _device_ms(lambda: wta_kernel.wta_planes(S, **kw), "wta_planes_kernel", 50),
+        "call_ms": _median_ms(lambda: wta_kernel.wta_planes(S, **kw), 50),
+        "plain_ms": _median_ms(lambda: wta_kernel.reference(S, **kw), 5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    print(f"times {label} on {card}: WTA kernel {t['ms']:.4f} ms on the card "
+          f"({t['call_ms']:.4f} ms by CUDA events around a call), bit for bit with the plain "
+          f"planes, {[k for k, on in kw.items() if on]} among them (bound {bound_ms:.4f} ms by "
+          f"{bound_by}, "
+          f"{100 * bound_ms / t['ms']:.1f}%); plain planes {t['plain_ms']:.3f} ms by CUDA "
+          f"events around a call", flush=True)
+    return t
+
+
 def sgm_schedule_bytes(H: int, W: int, cfg) -> int:
     """The bytes the SGM kernel's schedule moves: each direction reads C and
     writes its L once, and the sums read S and the two scratch volumes back
@@ -578,7 +632,8 @@ def middeval3_serve(reset, launched, check_map) -> dict:
     Returns the matcher, its uint8 pair and the map's bad-2.0."""
     import aswstereomatch_torch
     from aswstereomatch_torch.models import pipeline
-    from aswstereomatch_torch.ops.cuda import cost_kernel, disparity_kernel, sgm_kernel
+    from aswstereomatch_torch.ops.cuda import (cost_kernel, disparity_kernel, sgm_kernel,
+                                               wta_kernel)
     from aswstereomatch_torch.utils import synthetic
 
     H, W = MIDDEVAL3_H_SHAPE
@@ -594,24 +649,27 @@ def middeval3_serve(reset, launched, check_map) -> dict:
     reset()
     got = m(lu, ru).cpu().numpy()
     launched("middeval3_h_sgm's path", {"SGM": 1}, maps=1)
-    if sgm_kernel.long_launches != 1 or cost_kernel.launches != 1:
+    if sgm_kernel.long_launches != 1 or cost_kernel.launches != 1 or wta_kernel.launches != 1:
         fail(f"serve: middeval3_h_sgm's path ran {sgm_kernel.long_launches} long-D SGM "
-             f"volumes and {cost_kernel.launches} cost kernel launches, expected 1 and 1")
+             f"volumes, {cost_kernel.launches} cost kernel launches and "
+             f"{wta_kernel.launches} WTA kernel launches, expected 1, 1 and 1")
     bad = check_map("middeval3_h_sgm", got, p, D, 0.05)
     kernel_aggregate, kernel_cost = sgm_kernel.aggregate, cost_kernel.cost_volume
-    kernel_map = disparity_kernel.disparity_map
+    kernel_map, kernel_planes = disparity_kernel.disparity_map, wta_kernel.planes
     sgm_kernel.aggregate = sgm_kernel.aggregate_reference
     cost_kernel.cost_volume = cost_kernel.reference
     disparity_kernel.disparity_map = disparity_kernel.reference
+    wta_kernel.planes = wta_kernel.reference
     reset()
     try:
         want = m(lu, ru).cpu().numpy()
     finally:
         sgm_kernel.aggregate, cost_kernel.cost_volume = kernel_aggregate, kernel_cost
-        disparity_kernel.disparity_map = kernel_map
+        disparity_kernel.disparity_map, wta_kernel.planes = kernel_map, kernel_planes
     launched("the plain middeval3_h_sgm pipeline", {}, maps=0)
-    if cost_kernel.launches or sgm_kernel.long_launches:
-        fail("serve: the plain middeval3_h_sgm pipeline launched the cost or the SGM kernel")
+    if cost_kernel.launches or sgm_kernel.long_launches or wta_kernel.launches:
+        fail("serve: the plain middeval3_h_sgm pipeline launched the cost, the SGM or the WTA "
+             "kernel")
     if not np.array_equal(got, want):
         fail(f"serve: middeval3_h_sgm differs from the plain pipeline on "
              f"{int((got != want).sum())} pixels")
@@ -641,7 +699,9 @@ def middeval3_times(card: str, dev, served: dict) -> dict:
     if not (torch.isfinite(got).all() and torch.equal(got, ref)):
         fail(f"times: SGM middeval3_h_sgm differs from its plain version on "
              f"{int((got != ref).sum())} of {ref.numel()} values")
-    del got, ref
+    del ref
+    wta = wta_times(card, f"wta middeval3_h_sgm {W}x{H} D={c.max_disparity}", got, c)
+    del got
     plan = sgm_kernel.plan(H, W, c.max_disparity, c.sgm_paths)
     bound_ms, bound_by = sgm_bound(H, W, c)
     t = {
@@ -671,6 +731,7 @@ def middeval3_times(card: str, dev, served: dict) -> dict:
           + f" ms; plain {t['plain_ms']:.3f} ms; raw cost volume (the cost kernel) "
           f"{t['cost_volume_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair; peak "
           f"allocation of a call {t['peak_alloc_mib']:.3f} MiB", flush=True)
+    t["wta"] = wta
     return t
 
 
@@ -1919,7 +1980,7 @@ def main() -> int:
     from aswstereomatch_torch.ops.cuda import (asw_dlanes_kernel, asw_kernel, asw_sep_kernel,
                                                asw_sym_dlanes_kernel, build, common,
                                                cost_kernel, disparity_kernel, sgm_kernel,
-                                               stacks_kernel)
+                                               stacks_kernel, wta_kernel)
     from aswstereomatch_torch.utils import evaluate, plan_sweep, synthetic
 
     # ---- 1. device ------------------------------------------------------
@@ -2098,7 +2159,7 @@ def main() -> int:
 
     def reset():
         torch.cuda.synchronize()
-        for m in (*kernels.values(), stacks_kernel, cost_kernel, disparity_kernel):
+        for m in (*kernels.values(), stacks_kernel, cost_kernel, disparity_kernel, wta_kernel):
             m.launches = 0
         sgm_kernel.long_launches = 0
 
@@ -2232,25 +2293,30 @@ def main() -> int:
     if sgm_kernel.long_launches:
         fail(f"serve: SGM's path at D=128 ran {sgm_kernel.long_launches} volumes on the long-D "
              f"path, expected 0 (the register path)")
+    wta_launches = wta_kernel.launches
+    if wta_launches != sgm_launches:
+        fail(f"serve: SGM's path launched the WTA kernel {wta_launches} times, expected "
+             f"{sgm_launches} (one per SGM volume)")
     bads_g = [check_map("kitti_sgm", d, p, 128, 0.05) for p, d in zip(reqs_k, dsg)]
     bad_g8 = check_map("kitti_sgm 8 paths", dsg8, pk, 128, 0.05)
     # the same pipeline with the plain cost loop, the plain SGM and the plain
     # post-process on the card: the same map, bit for bit
     kernel_aggregate, kernel_cost = sgm_kernel.aggregate, cost_kernel.cost_volume
-    kernel_map = disparity_kernel.disparity_map
+    kernel_map, kernel_planes = disparity_kernel.disparity_map, wta_kernel.planes
     sgm_kernel.aggregate = sgm_kernel.aggregate_reference
     cost_kernel.cost_volume = cost_kernel.reference
     disparity_kernel.disparity_map = disparity_kernel.reference
+    wta_kernel.planes = wta_kernel.reference
     reset()
     try:
         plain_maps = [m(u8(pk["left"]), u8(pk["right"])).cpu().numpy() for m in (sgm_m, sgm8)]
     finally:
         sgm_kernel.aggregate, cost_kernel.cost_volume = kernel_aggregate, kernel_cost
-        disparity_kernel.disparity_map = kernel_map
+        disparity_kernel.disparity_map, wta_kernel.planes = kernel_map, kernel_planes
     launched("the plain SGM pipeline", {}, maps=0)
-    if cost_kernel.launches:
+    if cost_kernel.launches or wta_kernel.launches:
         fail(f"serve: the plain SGM pipeline launched the cost kernel {cost_kernel.launches} "
-             f"times")
+             f"times and the WTA kernel {wta_kernel.launches} times")
     for paths, got, want in ((4, dsg[0], plain_maps[0]), (8, dsg8, plain_maps[1])):
         if not np.array_equal(got, want):
             fail(f"serve: kitti_sgm {paths} paths differs from the plain pipeline on "
@@ -2258,9 +2324,9 @@ def main() -> int:
     print(f"serve SGM: 3 requests kitti_sgm 1242x375 D=128 bad_2 "
           f"{[round(b, 6) for b in bads_g]}, batch of 2 == singles, 8 paths bad_2 "
           f"{bad_g8:.6f}, density 1.0; maps equal the plain pipeline's (plain cost loop, "
-          f"plain SGM, plain post-process) bit for bit (4 and 8 paths); SGM launches "
-          f"{sgm_launches} (5 + 1), none on the long-D path, "
-          f"cost kernel {cost_launches}, other kernels 0",
+          f"plain SGM, plain WTA planes, plain post-process) bit for bit (4 and 8 paths); "
+          f"SGM launches {sgm_launches} (5 + 1), none on the long-D path, "
+          f"cost kernel {cost_launches}, WTA kernel {wta_launches}, other kernels 0",
           flush=True)
 
     # middeval3_h_sgm's path: one 1440x994 D=256 8-path pair with the
@@ -2269,10 +2335,11 @@ def main() -> int:
     sgm_launches += 1
     cost_launches += 1
     map_launches += 1
+    wta_launches += 1
     print(f"serve SGM: middeval3_h_sgm 1440x994 D=256 8 paths uniqueness 10 bad_2 "
           f"{mid['bad_2']:.6f}, density 1.0; the map equals the plain pipeline's bit for bit; "
-          f"SGM 1 (on the long-D path), cost kernel 1, disparity kernel 1, other kernels 0",
-          flush=True)
+          f"SGM 1 (on the long-D path), cost kernel 1, WTA kernel 1, disparity kernel 1, "
+          f"other kernels 0", flush=True)
     print(f"serve maps: the disparity kernel launched once per map on every path, "
           f"{map_launches} times", flush=True)
 
@@ -2542,8 +2609,16 @@ def main() -> int:
               f"{t['cost_volume_ms']:.3f} ms; end-to-end {t['e2e_ms']:.3f} ms/pair; "
               f"peak allocation of a call {t['peak_alloc_mib']:.3f} MiB", flush=True)
 
+    # The WTA kernel over kitti_sgm's SGM volume (8 paths, the cell's
+    # config), bit for bit with the plain planes, then timed
+    c8 = cfg_sgm.replace(sgm_paths=8)
+    S_k = sgm_kernel.aggregate(vol_k, c8)
+    times["wta 1242x375 D=128"] = wta_times(card, "wta kitti_sgm 1242x375 D=128", S_k, c8)
+    del S_k
+
     # SGM's long-D path at middeval3_h_sgm's shape, bit for bit, then timed
     times["SGM middeval3_h_sgm 8 paths"] = middeval3_times(card, dev, mid)
+    times["wta 1440x994 D=256"] = times["SGM middeval3_h_sgm 8 paths"].pop("wta")
     del mid
 
     # ---- 7. the entry points: serve, CLI, sweep -------------------------
@@ -2594,6 +2669,9 @@ def main() -> int:
             "none: XLA fuses aswstereomatch_tpu/models/pipeline.py::_disp_pre_from_wta "
             "and the median", map_launches, 0.0, "disparity 1242x375 D=128",
             middlebury=times["disparity 450x375 D=64"]),
+        row("wta_planes", "aswstereomatch_torch/ops/cuda/wta_kernel.cu",
+            "none: XLA fuses aswstereomatch_tpu/ops/wta.py and postprocess.right_volume",
+            wta_launches, 0.0, "wta 1242x375 D=128", middeval3=times["wta 1440x994 D=256"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
